@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of SRDiff x4 serving on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port (SRDiff x4 and SD x4-upscaler serving) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -17,6 +17,20 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    set to 0 just before the timed batch and read just after.
 4. Run the full-width model in float32 at LR 32x32 on the card (kernels) and
    on the CPU (plain versions) with the same weights and injected noise.
+5. Hold the flash-attention kernel against its plain version: bf16 at the SD
+   path's shape (2, 1024, 8, 128), float32 at a ragged L=1089 and at D=64;
+   time it beside its plain version and ``F.scaled_dot_product_attention``
+   (the yardstick only; the port never calls it).
+6. Serve the SD x4-upscaler at the published widths (seeded random weights,
+   bf16, DDIM 20 steps eta 0, guidance 9, noise level 20): one 256x256
+   uint8 image -> (1, 1024, 1024, 3), where the flash kernel runs 120 times
+   (6 level-3 and mid self-attentions of 1024 tokens per UNet call), then
+   the app's 128x128 point -> (1, 512, 512, 3), where it runs 0 times.
+   Each size is warmed up with a 2-step serve; the launch counters are set
+   to 0 just before each timed serve and read just after.
+7. The published-width UNet in float32 on the card and on the CPU at latent
+   32x32 (plain attention), and one level-3 Transformer2D on 32x32 tokens
+   (the flash kernel on the card, its plain version on the CPU).
 
 Any failure exits non-zero. The line before the last is the kernel table
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -46,6 +60,12 @@ F32_TOL = 1e-4       # the same in float32 (TF32 off on both sides)
 # units large they come to ~1e-5, and this bound leaves 3x room over ~32x
 # that. A broken kernel moves the output by 1e-1 or more.
 E2E_TOL = 1e-2
+# Flash attention against its plain version, relative to max |plain| alone
+# (outputs are convex mixes of v). bf16: the kernel rounds p to bf16 against
+# the running max of each 64-key tile, the plain version against the row max.
+FLASH_SHAPE = (2, 1024, 8, 128)  # (B, L, H, D): CFG batch, level-3 tokens at LR 256, 8 heads of 128
+FLASH_F32_SHAPES = ((1, 1089, 8, 128), (2, 1024, 4, 64), (1, 70, 2, 64))  # ragged L, D=64, one short tile
+SD_PROMPT = "a photo of a cat, high resolution, detailed"
 
 
 def card_line() -> str:
@@ -192,9 +212,9 @@ def phase_kernels():
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            # the plain version is a composition of cuDNN calls; no single
-            # PyTorch call computes the region, so it doubles as the yardstick
-            "library_ms": plain_ms,
+            # the plain version is a composition of cuDNN calls and
+            # elementwise ops: no single PyTorch call computes the region
+            "library_ms": None,
         })
     del r
     torch.cuda.empty_cache()
@@ -295,6 +315,191 @@ def phase_card_vs_cpu():
     return {"eps_max_abs_err": eps_err, "eps_rel_err": eps_rel, "max_abs_err": err, "cpu_s": t_cpu}, failures
 
 
+def flash_inputs(b, l, h, d, dtype, seed):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, l, h, d, generator=g).to("cuda", dtype) for _ in range(3)]
+
+
+def phase_flash():
+    """The flash-attention kernel against its plain version; returns its
+    table row (``launches`` filled by the SD serve) and failures."""
+    import torch
+    import torch.nn.functional as F
+
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    failures = []
+    for shape in FLASH_F32_SHAPES:
+        q, k, v = flash_inputs(*shape, torch.float32, seed=shape[1])
+        want = fa.flash_attention_reference(q, k, v)
+        err = (fa.flash_attention(q, k, v) - want).abs().max().item()
+        ok = err <= F32_TOL * want.abs().max().item()
+        print(f"f32  flash_attention     {shape}: max_abs_err {err:.3e} "
+              f"{'ok' if ok else 'FAIL'} (tol {F32_TOL} of max |plain|)", flush=True)
+        if not ok:
+            failures.append(f"flash_attention f32 {shape}")
+    b, l, h, d = FLASH_SHAPE
+    q, k, v = flash_inputs(b, l, h, d, torch.bfloat16, seed=1)
+    want = fa.flash_attention_reference(q, k, v)
+    err = (fa.flash_attention(q, k, v).float() - want.float()).abs().max().item()
+    ok = err <= BF16_TOL * want.float().abs().max().item()
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), iters=50)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # SDPA's (B, H, L, D), as views
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=50)
+    flops, nbytes = 4.0 * b * h * l * l * d, 4 * b * l * h * d * 2
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16)
+    print(f"bf16 flash_attention     {FLASH_SHAPE}: max_abs_err {err:.3e} {'ok' if ok else 'FAIL'} "
+          f"(tol {BF16_TOL} of max |plain|); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"SDPA {sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB", flush=True)
+    if not ok:
+        failures.append("flash_attention bf16 main shape")
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "dgm_img_super_resolution_tpu_torch/ops/kernels/csrc/flash_attention.cu",
+           "replaces": "dgm_img_super_resolution_tpu/ops/pallas/attention.py:59",
+           "launches": None, "max_abs_err": err, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_ms}
+    return row, failures
+
+
+def _counters():
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import block_chain as bc
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import flash_attention as fa
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import tail_fuse as tf
+
+    return {"block_chain3_stem": bc.block_chain3_stem, "block_chain3": bc.block_chain3,
+            "tail_fuse": tf.tail_fuse, "flash_attention": fa.flash_attention}
+
+
+def _sd_serve(pipe, lr: int, steps: int):
+    """One timed SD serve of a ``lr``-square uint8 image with every launch
+    counter set to 0 just before it; (output, seconds, launches)."""
+    import numpy as np
+    import torch
+
+    img = np.random.default_rng(lr).integers(0, 256, (lr, lr, 3), dtype=np.uint8)
+    counters = _counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = pipe.upscale_device(SD_PROMPT, img, num_inference_steps=steps, guidance_scale=9.0,
+                              noise_level=20, eta=0.0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return out, dt, {name: fn.launches for name, fn in counters.items()}
+
+
+def phase_sd_serve(rows):
+    """The SD x4-upscaler at the published widths in bf16: LR 256 (the flash
+    kernel's path), then the app's LR 128, each timed once after a short
+    warm-up serve. Fills the flash row's ``launches`` from the LR 256 serve."""
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.models.sd.pipeline import StableDiffusionUpscalePipeline
+
+    t0 = time.perf_counter()
+    pipe = StableDiffusionUpscalePipeline(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    failures, res = [], {"init_s": init_s}
+    steps = 20
+    for lr, want_flash in ((256, 6 * steps), (128, 0)):
+        _sd_serve(pipe, lr, 2)  # warm-up at this size (first-call set-up of its convs and matmuls)
+        torch.cuda.reset_peak_memory_stats()
+        out, dt, launches = _sd_serve(pipe, lr, steps)
+        shape_ok = tuple(out.shape) == (1, 4 * lr, 4 * lr, 3) and out.is_cuda
+        finite = bool(torch.isfinite(out).all())
+        in_range = bool(((out >= 0) & (out <= 1)).all())
+        if not (shape_ok and finite and in_range):
+            failures.append(f"SD LR {lr}: output {tuple(out.shape)} finite {finite} in [0, 1] {in_range}")
+        if launches["flash_attention"] != want_flash:
+            failures.append(f"SD LR {lr}: flash_attention launched {launches['flash_attention']} times, "
+                            f"expected {want_flash}")
+        r = {"wall_s": dt, "launches": launches, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "out_mean": float(out.mean()), "out_std": float(out.std())}
+        # one CFG UNet call and one decode at this size, on the serve's own shapes
+        lat = torch.randn(2, 7, lr, lr, device="cuda", dtype=pipe.dtype)
+        ctx = torch.randn(2, 77, 1024, device="cuda", dtype=pipe.dtype)
+        tt, nl = torch.full((2,), 951, device="cuda"), torch.full((2,), 20, device="cuda")
+        with torch.inference_mode():
+            r["unet_step_ms"] = cuda_ms(lambda: pipe.unet(lat, tt, ctx, nl), iters=5)
+            r["vae_decode_ms"] = cuda_ms(lambda: pipe.vae.decode(lat[:1, :4]), iters=2)
+        if lr == 256:
+            for row in rows:
+                row["launches"] = launches[row["name"]]
+        res[f"lr{lr}"] = r
+        print(f"SD x4 ddim{steps} eta 0 cfg 9 bf16 LR {lr} -> {4 * lr}: {dt:.3f} s, UNet step (CFG batch 2) "
+              f"{r['unet_step_ms']:.2f} ms, VAE decode {r['vae_decode_ms']:.2f} ms, peak {r['peak_mem_gib']:.2f} GiB, "
+              f"launches {launches}, out mean {r['out_mean']:.4f} std {r['out_std']:.4f}"
+              + ("" if shape_ok and finite and in_range else " FAIL"), flush=True)
+    print(f"SD pipeline init (published widths, random weights on the card): {init_s:.2f} s", flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+    return res, failures
+
+
+def phase_sd_card_vs_cpu():
+    """The published-width UNet in float32 on the card and on the CPU at
+    latent 32x32 (plain attention: level 3 is 4x4), and its first level-3
+    Transformer2D on 32x32 tokens (the flash kernel on the card)."""
+    import numpy as np
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.ckpt.sd_inventory import X4_UNET_CONFIG
+    from dgm_img_super_resolution_tpu_torch.models.sd.pipeline import init_sd_params
+    from dgm_img_super_resolution_tpu_torch.models.sd.unet import UNet2DCondition
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = UNet2DCondition(X4_UNET_CONFIG).eval()
+    init_sd_params(cpu, seed=3)
+    with torch.device("cuda"):
+        gpu = UNet2DCondition(X4_UNET_CONFIG).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(4)
+    x, ctx = torch.randn(2, 7, 32, 32, generator=g), torch.randn(2, 77, 1024, generator=g)
+    t, nl = torch.tensor([951, 1]), torch.tensor([20, 350])
+    res, failures = {}, []
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = cpu(x, t, ctx, nl)
+        cpu_s = time.perf_counter() - t0
+        got = gpu(x.cuda(), t.cuda(), ctx.cuda(), nl.cuda()).cpu()
+        err, rel = rel_err(got, want)
+        # F32_TOL as for the SRDiff UNet forward: float32 sums in another
+        # order (cuDNN's algorithms, TF32 off) through about 70 layers
+        ok = rel <= F32_TOL and bool(torch.isfinite(got).all())
+        print(f"card vs CPU, f32 SD UNet published widths, latent 32x32 B=2: max_abs_err {err:.3e} "
+              f"rel {rel:.3e} {'ok' if ok else 'FAIL'} (tol {F32_TOL}; CPU {cpu_s:.1f} s)", flush=True)
+        res["unet"] = {"max_abs_err": err, "rel_err": rel, "cpu_s": cpu_s}
+        if not ok:
+            failures.append("SD card vs CPU UNet forward")
+
+        tcpu, tgpu = cpu.down_blocks[3].attentions[0], gpu.down_blocks[3].attentions[0]
+        y = torch.randn(2, tcpu.proj_in.in_features, 32, 32, generator=g)
+        want = tcpu(y, ctx)
+        before = fa.flash_attention.launches
+        got = tgpu(y.cuda(), ctx.cuda()).cpu()
+        n = fa.flash_attention.launches - before
+        err, rel = rel_err(got, want)
+        ok = rel <= F32_TOL and n == 1
+        print(f"card vs CPU, f32 level-3 Transformer2D (1024 ch, 8 heads) on 32x32 tokens B=2: "
+              f"max_abs_err {err:.3e} rel {rel:.3e}, flash launches {n} {'ok' if ok else 'FAIL'} "
+              f"(tol {F32_TOL})", flush=True)
+        res["transformer2d"] = {"max_abs_err": err, "rel_err": rel, "flash_launches": n}
+        if not ok:
+            failures.append("SD card vs CPU Transformer2D")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return res, failures
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None, help="directory for the full results")
@@ -324,12 +529,16 @@ def main() -> int:
     rows, failures = phase_kernels()
     pipe, f3 = phase_pipeline(rows)
     e2e, f4 = phase_card_vs_cpu()
-    failures += f3 + f4
+    flash_row, f5 = phase_flash()
+    rows.append(flash_row)
+    sd, f6 = phase_sd_serve([flash_row])
+    sd_e2e, f7 = phase_sd_card_vs_cpu()
+    failures += f3 + f4 + f5 + f6 + f7
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if args.out:
         (args.out / "chip_smoke.json").write_text(json.dumps(
-            {"card": card, "kernels": rows, "pipeline": pipe, "card_vs_cpu": e2e,
-             "failures": failures}, indent=1))
+            {"card": card, "kernels": rows, "pipeline": pipe, "card_vs_cpu": e2e, "sd": sd,
+             "sd_card_vs_cpu": sd_e2e, "failures": failures}, indent=1))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1

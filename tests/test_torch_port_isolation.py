@@ -79,3 +79,24 @@ def test_pipeline_needs_cuda_unless_asked_for_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SRDiffPipeline(hp)
     assert SRDiffPipeline(hp, device="cpu").device.type == "cpu"
+
+
+def test_flash_attention_on_cpu_leaves_its_counter_alone():
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import flash_attention as fa
+
+    q, k, v = torch.randn(3, 1, 70, 2, 64).unbind(0)
+    before = fa.flash_attention.launches
+    assert torch.isfinite(fa.flash_attention(q, k, v)).all()
+    assert fa.flash_attention.launches == before
+
+
+def test_sd_pipeline_needs_cuda_unless_asked_for_cpu(monkeypatch):
+    from dgm_img_super_resolution_tpu_torch.models.sd.pipeline import StableDiffusionUpscalePipeline
+    from torch_port_helpers import CLIP_TINY, UNET_TINY, VAE_TINY
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dict(unet_config=UNET_TINY, vae_config=VAE_TINY, text_config=CLIP_TINY, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StableDiffusionUpscalePipeline(**cfg)
+    pipe = StableDiffusionUpscalePipeline(**cfg, device="cpu")
+    assert {p.device.type for p in pipe.unet.parameters()} == {"cpu"}

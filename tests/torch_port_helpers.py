@@ -28,3 +28,40 @@ def random_jax_params(hp, seed):
         return out
 
     return d, fill(shapes)
+
+
+# Tiny SD configs under the published schemas (as tests/test_sd_torch_parity.py)
+UNET_TINY = {
+    "in_channels": 7, "out_channels": 4, "block_out_channels": [32, 64], "layers_per_block": 2,
+    "down_block_types": ["DownBlock2D", "CrossAttnDownBlock2D"],
+    "up_block_types": ["CrossAttnUpBlock2D", "UpBlock2D"],
+    "attention_head_dim": 2, "cross_attention_dim": 64, "only_cross_attention": [False, True],
+    "num_class_embeds": 17,
+}
+VAE_TINY = {
+    "in_channels": 3, "out_channels": 3, "block_out_channels": [32, 64], "layers_per_block": 2,
+    "latent_channels": 4, "legacy_attention_keys": True, "scaling_factor": 0.08333,
+}
+CLIP_TINY = {
+    "vocab_size": 1024, "hidden_size": 64, "intermediate_size": 256, "num_hidden_layers": 3,
+    "num_attention_heads": 4, "max_position_embeddings": 77, "hidden_act": "gelu", "layer_norm_eps": 1e-5,
+}
+
+
+def random_published_state_dict(shapes, seed):
+    """Random float32 numpy weights for every key of a published-schema
+    inventory: norm scales near 1, biases and embeddings small, kernels
+    N(0, 1/fan_in)."""
+    g = np.random.default_rng(seed)
+    sd = {}
+    for key, shp in shapes.items():
+        if key.endswith(".bias"):
+            v = 0.02 * g.standard_normal(shp)
+        elif len(shp) == 1:
+            v = 1.0 + 0.05 * g.standard_normal(shp)
+        elif "embedding" in key and "time_embedding" not in key:
+            v = 0.05 * g.standard_normal(shp)
+        else:
+            v = g.standard_normal(shp) / np.sqrt(int(np.prod(shp[1:])))
+        sd[key] = v.astype(np.float32)
+    return sd

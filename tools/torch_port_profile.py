@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time of one SRDiff x4 serve goes on the GPU (the PyTorch port).
+"""Where the time of one serve goes on the GPU (the PyTorch port).
 
-    python3 tools/torch_port_profile.py [--batch 8] [--steps 20] [--out DIR]
+    python3 tools/torch_port_profile.py [--model srdiff|sd] [--batch N] [--steps 20] [--lr PX] [--out DIR]
 
-Serves the default full-width config (seeded random weights, bf16, DDIM
-``--steps`` steps with eta 1, 128x128 uint8 LR -> 512x512) once to warm up,
+``--model srdiff`` (default) serves the default full-width SRDiff config
+(seeded random weights, bf16, DDIM ``--steps`` steps with eta 1, batch
+``--batch`` (8) of 128x128 uint8 LR -> 512x512). ``--model sd`` serves the SD
+x4-upscaler at the published widths (seeded random weights, bf16, DDIM
+``--steps`` steps with eta 0, guidance 9, noise level 20, batch ``--batch``
+(1) of ``--lr``-square (256) uint8 LR -> x4). Each serves once to warm up,
 then once under ``torch.profiler``. Prints the device time by kernel class
 and the top kernels, the device's busy and idle share of the wall time, and
 one JSON line with the same numbers. ``--out DIR`` also writes a Chrome trace.
@@ -25,6 +29,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 def kernel_class(name: str) -> str:
     if "conv_tile_kernel" in name or "stem_kernel" in name:
         return "port kernels (3 regions)"
+    if "flash_kernel" in name:
+        return "port kernel (flash attention)"
     low = name.lower()
     if any(k in low for k in ("xmma", "implicit_gemm", "cudnn", "cutlass", "conv", "gemm", "sm90")):
         return "cuDNN / cuBLAS convs and matmuls"
@@ -33,8 +39,10 @@ def kernel_class(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--model", choices=("srdiff", "sd"), default="srdiff")
+    ap.add_argument("--batch", type=int, default=None, help="images per serve (srdiff 8, sd 1)")
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--lr", type=int, default=None, help="LR side in pixels (srdiff 128, sd 256)")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
 
@@ -43,20 +51,30 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
-    from dgm_img_super_resolution_tpu_torch.inference import SRDiffPipeline
-
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    hp = Hparams(sampler="ddim", sample_timesteps=args.steps, ddim_eta=1.0, compute_dtype="bfloat16")
-    pipe = SRDiffPipeline(hp)
-    imgs = np.random.default_rng(0).integers(0, 256, (args.batch, 128, 128, 3), dtype=np.uint8)
-    pipe.upscale_batch_device(imgs, as_uint8=True)
+    sd = args.model == "sd"
+    batch = args.batch or (1 if sd else 8)
+    lr = args.lr or (256 if sd else 128)
+    imgs = np.random.default_rng(0).integers(0, 256, (batch, lr, lr, 3), dtype=np.uint8)
+    if sd:
+        from dgm_img_super_resolution_tpu_torch.models.sd.pipeline import StableDiffusionUpscalePipeline
+
+        pipe = StableDiffusionUpscalePipeline(seed=0)
+        serve = lambda: pipe.upscale_device("a photo of a cat", imgs, num_inference_steps=args.steps)  # noqa: E731
+    else:
+        from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+        from dgm_img_super_resolution_tpu_torch.inference import SRDiffPipeline
+
+        hp = Hparams(sampler="ddim", sample_timesteps=args.steps, ddim_eta=1.0, compute_dtype="bfloat16")
+        pipe = SRDiffPipeline(hp)
+        serve = lambda: pipe.upscale_batch_device(imgs, as_uint8=True)  # noqa: E731
+    serve()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.upscale_batch_device(imgs, as_uint8=True)
+        serve()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
@@ -66,7 +84,7 @@ def main() -> int:
         c = kernel_class(a.key)
         by_class[c] = by_class.get(c, 0.0) + a.device_time_total / 1e3
     card = torch.cuda.get_device_name(0)
-    print(f"{card}: batch {args.batch}, ddim{args.steps}: wall {wall_ms:.1f} ms (profiled), "
+    print(f"{card}: {args.model} batch {batch} LR {lr}, ddim{args.steps}: wall {wall_ms:.1f} ms (profiled), "
           f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), {len(kernels)} kernel names")
     for c, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {c:36s} {ms:9.1f} ms  {100 * ms / max(busy_ms, 1e-9):5.1f}% of device time")
@@ -75,8 +93,9 @@ def main() -> int:
         print(f"  {a.device_time_total / 1e3:9.2f} ms  x{a.count:<5d} {a.key[:110]}")
     if args.out:
         args.out.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(args.out / "torch_port_profile.json"))
-    print(json.dumps({"card": card, "batch": args.batch, "steps": args.steps, "wall_ms": wall_ms,
+        prof.export_chrome_trace(str(args.out / f"torch_port_profile_{args.model}.json"))
+    print(json.dumps({"card": card, "model": args.model, "batch": batch, "lr": lr, "steps": args.steps,
+                      "wall_ms": wall_ms,
                       "device_busy_ms": busy_ms, "by_class_ms": by_class,
                       "top": [[a.key[:80], a.device_time_total / 1e3, a.count] for a in top[:10]]}))
     return 0
