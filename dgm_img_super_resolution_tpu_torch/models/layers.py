@@ -1,5 +1,5 @@
 """SRDiff building blocks (counterpart of the JAX package's
-``models/layers.py:41-58``, ``:208-248`` and ``:515-717``).
+``models/layers.py:41-58``, ``:208-248`` and ``:326-717``).
 
 Modules are NCHW with PyTorch's parameter layouts and the reference
 checkpoint's names (``block.1`` is the conv of a Block, ``mlp.1`` the time
@@ -7,15 +7,83 @@ Linear of a ResnetBlock, ``conv.0``/``conv.1`` the Upsample/Downsample
 convs). Parameters stay float32; every forward casts them to the dtype of
 its input, which is the compute dtype. ``LinearAttention``, GroupNorm and
 ``MultiheadAttention`` are off in the SRDiff config and not ported yet.
+
+The kernel gates (``chain_eligible`` ... ``rowpack_eligible``) read the JAX
+package's environment switches, with its defaults, at every forward, so one
+A/B configuration sets both packages. They keep its switches and channel
+conditions and drop its TPU tile conditions (H, W multiples of 8 or 16, W >=
+128, the backend check): the CUDA kernels take any H, W >= 2. They do not
+look at the device either, so the CPU runs the same routing through the
+kernels' plain versions.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+_CHAIN_CHANNELS = (64,)
+
+
+def _switch(name: str, default: str) -> bool:
+    return os.environ.get(name, default).lower() not in ("", "0", "false")
+
+
+def chain_channels() -> tuple[int, ...]:
+    """ResnetBlock-pair widths routed to the chain kernels: ``DGMSR_CHAIN_C``
+    (comma-separated), default 64. The port's chain kernels are built for
+    C = 64 only: the JAX kernel's unpacked C >= 128 mode is not ported, so
+    naming another width raises."""
+    env = os.environ.get("DGMSR_CHAIN_C")
+    chans = tuple(int(v) for v in env.split(",")) if env else _CHAIN_CHANNELS
+    if set(chans) - {64}:
+        raise NotImplementedError(
+            f"DGMSR_CHAIN_C={env}: the port's chain kernels take C=64 only "
+            "(the C>=128 unpacked mode is not ported)"
+        )
+    return chans
+
+
+def chain_eligible(h: int, w: int, c: int) -> bool:
+    """ResnetBlock pairs of width ``c`` go to the chain kernels
+    (``DGMSR_PALLAS_FUSED``, default on)."""
+    return _switch("DGMSR_PALLAS_FUSED", "1") and c in chain_channels() and h >= 2 and w >= 2
+
+
+def chain_stem_enabled() -> bool:
+    """Down stage 0's stem conv and 1x1 residual run inside the chain
+    (``DGMSR_PALLAS_STEM``, default on)."""
+    return _switch("DGMSR_PALLAS_STEM", "1")
+
+
+def chain_ds_enabled() -> bool:
+    """Down stage 0's Downsample folds into the stem chain
+    (``DGMSR_PALLAS_DS``, default off)."""
+    return _switch("DGMSR_PALLAS_DS", "0")
+
+
+def chain_head_enabled(c_stream: int, dim_out: int) -> bool:
+    """The up stage's head conv over ``[x || skip]`` and its 1x1 residual
+    run inside the chain (``DGMSR_PALLAS_HEAD``, default off)."""
+    return _switch("DGMSR_PALLAS_HEAD", "0") and dim_out == 64 and c_stream % 64 == 0 and c_stream <= 128
+
+
+def tail_eligible(h: int, w: int, c: int) -> bool:
+    """The last Upsample, final Block and final 1x1 go to the tail kernel
+    (``DGMSR_PALLAS_TAIL``, default on); ``h``/``w``/``c`` are the
+    pre-upsample dims."""
+    return _switch("DGMSR_PALLAS_TAIL", "1") and c == 64 and h >= 2 and w >= 2
+
+
+def rowpack_eligible(x: torch.Tensor, c_in: int, features: int) -> bool:
+    """A C -> C reflect conv of a Block (no skip join) goes to the conv3x3
+    kernel (``DGMSR_PALLAS_CONV``, default off), C in {32, 64}."""
+    return (_switch("DGMSR_PALLAS_CONV", "0") and c_in == features and features in (32, 64)
+            and x.ndim == 4 and x.shape[2] >= 2 and x.shape[3] >= 2)
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -79,19 +147,30 @@ def linear(x, layer: nn.Linear):
 
 
 class Block(nn.Module):
-    """ReflectionPad(1) -> Conv3x3 -> Mish (``groups=0``, the SRDiff config)."""
+    """ReflectionPad(1) -> Conv3x3 -> Mish (``groups=0``, the SRDiff config).
+
+    ``joined``: ``x`` is the up stages' ``[x || skip]`` join, which the JAX
+    package convolves as two inputs and never sends to the conv3x3 kernel."""
 
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
         self.block = nn.Sequential(nn.ReflectionPad2d(1), nn.Conv2d(dim_in, dim_out, 3), Mish())
 
-    def pre_act(self, x):
-        """The conv with its bias, before Mish."""
+    def _conv(self, x, act: bool, joined: bool):
         c = self.block[1]
-        return reflect_conv3x3(x, c.weight, c.bias)
+        if not joined and rowpack_eligible(x, c.in_channels, c.out_channels):
+            from dgm_img_super_resolution_tpu_torch.ops.kernels import conv3x3 as k
 
-    def forward(self, x):
-        return mish(self.pre_act(x))
+            return k.conv3x3(x, c.weight, c.bias, border="reflect", mish=act)
+        y = reflect_conv3x3(x, c.weight, c.bias)
+        return mish(y) if act else y
+
+    def pre_act(self, x, joined: bool = False):
+        """The conv with its bias, before Mish."""
+        return self._conv(x, False, joined)
+
+    def forward(self, x, joined: bool = False):
+        return self._conv(x, True, joined)
 
 
 class ResnetBlock(nn.Module):
@@ -117,7 +196,7 @@ class ResnetBlock(nn.Module):
     def forward(self, x, time_emb, cond=None, skip=None):
         if skip is not None:
             x = torch.cat([x, skip], dim=1)
-        h = self.block1(x) + self.time_vec(time_emb)[:, :, None, None]
+        h = self.block1(x, joined=skip is not None) + self.time_vec(time_emb)[:, :, None, None]
         if cond is not None:
             h = h + cond
         return self.block2(h) + self.residual(x)

@@ -10,12 +10,19 @@
   popped (the reference topology);
 - final reflect Block + 1x1 conv.
 
-Three regions are routed by structure to the kernel wrappers of
-``ops/kernels``: down stage 0 to ``block_chain3_stem``, the last up stage's
-chain to ``block_chain3`` and the tail (last Upsample, final Block, final
-1x1) to ``tail_fuse``. On CPU tensors they run their plain versions, so the
-CPU tests go through the same region functions as the card.
-``LinearAttention``, GroupNorm and the encoder-propagation modes wait.
+Regions go to the kernel wrappers of ``ops/kernels`` through the gates of
+``models/layers.py``, exactly where the JAX package's ``unet.py:141-372``
+sends them to its Pallas kernels: a ResnetBlock pair of a width in the chain
+set (C = 64) to ``block_chain3``, or, for down stage 0, to
+``block_chain3_stem`` (with the Downsample folded in, ``block_chain3_stem_ds``,
+when DS is on), or, for an up stage whose ``x`` and ``skip`` match, to
+``block_chain3_head`` when HEAD is on; the last Upsample, final Block and
+final 1x1 at C = 64 to ``tail_fuse``; and, when CONV is on, each C -> C
+Block conv at C in {32, 64} to ``conv3x3``. Everything else, and every
+region whose gate is off, takes the plain module path (cuDNN on the card).
+On CPU tensors the wrappers run their plain versions, so the CPU tests go
+through the same routing as the card. ``LinearAttention``, GroupNorm and the
+encoder-propagation modes wait.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from dgm_img_super_resolution_tpu_torch.models import layers as L
 from dgm_img_super_resolution_tpu_torch.models.layers import (
     Block,
     Downsample,
@@ -35,7 +43,7 @@ from dgm_img_super_resolution_tpu_torch.models.layers import (
     reflect_conv3x3,
     sinusoidal_pos_emb,
 )
-from dgm_img_super_resolution_tpu_torch.ops.kernels.block_chain import block_chain3, block_chain3_stem
+from dgm_img_super_resolution_tpu_torch.ops.kernels import block_chain as bc
 from dgm_img_super_resolution_tpu_torch.ops.kernels.tail_fuse import tail_fuse
 
 
@@ -43,6 +51,11 @@ def _nhwc(t: torch.Tensor) -> torch.Tensor:
     """On the card, activations are held channels_last (NHWC memory), the
     layout the kernels take; a no-op when they already are."""
     return t.contiguous(memory_format=torch.channels_last) if t.is_cuda else t
+
+
+def _wb(c: nn.Module):
+    """(weight, bias) of a conv layer."""
+    return c.weight, c.bias
 
 
 class Unet(nn.Module):
@@ -106,47 +119,69 @@ class Unet(nn.Module):
 
         h = []
         for i, (rb1, rb2, down) in enumerate(self.downs):
-            if i == 0:
-                x = self._stem_region(rb1, rb2, x, t, cond_proj)
-                if self.res and self.up_input and not up_folded:
-                    if img_lr_up is None:
-                        raise ValueError(
-                            "Unet: res+up_input needs img_lr_up per step, or a projection "
-                            "that folded it in (then pass up_folded=True)"
-                        )
-                    x = x + self._up_proj(img_lr_up)
+            last = i == len(self.downs) - 1
+            dim_out = rb1.block1.block[1].out_channels
+            x_ds = None
+            if L.chain_eligible(x.shape[2], x.shape[3], dim_out):
+                fold_ds = (
+                    i == 0 and not last and x.shape[1] <= 4 and L.chain_ds_enabled()
+                    and L.chain_stem_enabled() and dim_out == 64
+                    and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0
+                    and not (self.res and self.up_input and not up_folded)
+                )
+                out = self._fused_pair(rb1, rb2, x, t, cond=cond_proj if i == 0 else None,
+                                       ds=down if fold_ds else None)
+                x, x_ds = out if isinstance(out, tuple) else (out, None)
             else:
                 x = rb2(rb1(x, t), t)
+                if i == 0:
+                    x = x + cond_proj
+            if i == 0 and self.res and self.up_input and not up_folded:
+                if img_lr_up is None:
+                    raise ValueError(
+                        "Unet: res+up_input needs img_lr_up per step, or a projection "
+                        "that folded it in (then pass up_folded=True)"
+                    )
+                x = x + self._up_proj(img_lr_up)
             h.append(x)
-            x = down(x)
+            if not last:
+                x = x_ds if x_ds is not None else down(x)
 
-        x = self.mid_block2(self.mid_block1(x, t), t)
+        if L.chain_eligible(x.shape[2], x.shape[3], x.shape[1]):
+            x = self._fused_pair(self.mid_block1, self.mid_block2, x, t)
+        else:
+            x = self.mid_block2(self.mid_block1(x, t), t)
 
         for i, (rb1, rb2, up) in enumerate(self.ups):
-            if i < len(self.ups) - 1:
-                x = up(rb2(rb1(x, t, skip=h.pop()), t))
-                continue
-            x = self._up_region(rb1, rb2, x, h.pop(), t)
-            return self._tail_region(up, x)
+            dim_in = rb2.block1.block[1].out_channels
+            if L.chain_eligible(x.shape[2], x.shape[3], dim_in):
+                x = self._fused_pair(rb1, rb2, x, t, skip=h.pop())
+            else:
+                x = rb2(rb1(x, t, skip=h.pop()), t)
+            if i == len(self.ups) - 1 and L.tail_eligible(x.shape[2], x.shape[3], dim_in):
+                return tail_fuse(x, *_wb(up.conv[0]), *_wb(self.final_conv[0].block[1]),
+                                 *_wb(self.final_conv[1]))
+            x = _nhwc(up(x))
+        return conv(self.final_conv[0](x), self.final_conv[1])
 
     @staticmethod
-    def _stem_region(rb1, rb2, x, t, cond):
-        b1, r, b2 = rb1.block1.block[1], rb1.res_conv, rb1.block2.block[1]
-        c1, c2 = rb2.block1.block[1], rb2.block2.block[1]
-        return block_chain3_stem(
-            x, b1.weight, b1.bias, r.weight, r.bias, rb1.time_vec(t), rb2.time_vec(t),
-            b2.weight, b2.bias, c1.weight, c1.bias, c2.weight, c2.bias, cond,
-        )
+    def _fused_pair(rb1, rb2, x, t, skip=None, cond=None, ds=None):
+        """A ResnetBlock pair through the chain kernels (JAX ``unet.py``
+        ``fused_pair``); returns ``(out, ds_out)`` when ``ds`` (down stage
+        0's Downsample) folds in."""
+        dim_out = rb1.block1.block[1].out_channels
+        tv1, tv2 = rb1.time_vec(t), rb2.time_vec(t)
+        tail = (*_wb(rb1.block2.block[1]), *_wb(rb2.block1.block[1]), *_wb(rb2.block2.block[1]))
+        if skip is not None and x.shape == skip.shape and L.chain_head_enabled(x.shape[1], dim_out):
+            return bc.block_chain3_head(_nhwc(x), _nhwc(skip), *_wb(rb1.block1.block[1]),
+                                        *_wb(rb1.res_conv), tv1, tv2, *tail)
+        if x.shape[1] <= 4 and skip is None and L.chain_stem_enabled() and dim_out == 64:
+            head = (x, *_wb(rb1.block1.block[1]), *_wb(rb1.res_conv), tv1, tv2, *tail, cond)
+            if ds is not None:
+                return bc.block_chain3_stem_ds(*head, *_wb(ds.conv[1]))
+            return bc.block_chain3_stem(*head)
+        joined = skip is not None
+        xs = torch.cat([x, skip], dim=1) if joined else x
+        a_pre, r1 = rb1.block1.pre_act(xs, joined=joined), rb1.residual(xs)
+        return bc.block_chain3(_nhwc(a_pre), _nhwc(r1), tv1, tv2, *tail, cond)
 
-    @staticmethod
-    def _up_region(rb1, rb2, x, skip, t):
-        xs = torch.cat([x, skip], dim=1)
-        b2, c1, c2 = rb1.block2.block[1], rb2.block1.block[1], rb2.block2.block[1]
-        return block_chain3(
-            _nhwc(rb1.block1.pre_act(xs)), _nhwc(rb1.residual(xs)), rb1.time_vec(t), rb2.time_vec(t),
-            b2.weight, b2.bias, c1.weight, c1.bias, c2.weight, c2.bias,
-        )
-
-    def _tail_region(self, up, x):
-        ct, fb, fo = up.conv[0], self.final_conv[0].block[1], self.final_conv[1]
-        return tail_fuse(x, ct.weight, ct.bias, fb.weight, fb.bias, fo.weight, fo.bias)

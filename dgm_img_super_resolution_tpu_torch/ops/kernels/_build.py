@@ -20,7 +20,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("block_chain", "tail_fuse", "flash_attention")
+SOURCES = ("block_chain", "tail_fuse", "flash_attention", "conv3x3", "group_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -93,14 +93,16 @@ def load_library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def function(lib: str, fn: str, n_ptrs: int, n_ints: int):
-    """The C function ``int fn(int dtype, void* x n_ptrs, int x n_ints, void*
-    stream)`` of ``csrc/<lib>.cu``, declared once. Pointers and the stream are
-    ``c_void_p``: an ``int`` argtype would cut them to 32 bits."""
+def function(lib: str, fn: str, n_ptrs: int, n_ints: int, n_floats: int = 0):
+    """The C function ``int fn(int dtype, void* x n_ptrs, int x n_ints, float
+    x n_floats, void* stream)`` of ``csrc/<lib>.cu``, declared once. Pointers
+    and the stream are ``c_void_p``: an ``int`` argtype would cut them to 32
+    bits."""
     if fn not in _fns:
         f = getattr(load_library(lib), fn)
         f.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+            [ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+            + [ctypes.c_float] * n_floats + [ctypes.c_void_p]
         )
         f.restype = ctypes.c_int
         _fns[fn] = f

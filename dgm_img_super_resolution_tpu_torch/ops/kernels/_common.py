@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-C = 64  # channels the kernels are instantiated for
+C = 64  # channels of the stem, chain, head and tail kernels
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

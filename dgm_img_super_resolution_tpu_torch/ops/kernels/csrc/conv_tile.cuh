@@ -1,17 +1,22 @@
-// Tiled direct convolution over NHWC activations with C = 64 channels in and
-// out, shared by the UNet regions in block_chain.cu and tail_fuse.cu.
+// Tiled direct convolution over NHWC activations with C in {32, 64} channels
+// in and out, shared by the UNet regions in block_chain.cu and tail_fuse.cu
+// and by the single conv of conv3x3.cu.
 //
-// One block computes an 8x16-pixel output tile for all 64 output channels as
-// an implicit GEMM: M = 128 pixels, N = 64 channels, K = taps x 64. The input
+// One block computes an 8x16-pixel output tile for all C output channels as
+// an implicit GEMM: M = 128 pixels, N = C channels, K = taps x C. The input
 // tile and its 1-pixel halo are staged in shared memory (the halo built with
-// the border rule of the conv: reflect, or zeros), and every tap's 64x64
+// the border rule of the conv: reflect, or zeros), and every tap's CxC
 // weight slab stays resident in shared memory for the life of the block,
 // which walks over tiles persistently. Accumulation is f32: bf16 inputs go
 // through mma.sync m16n8k16 tensor-core products, f32 inputs through plain
 // FMAs with the same ownership of outputs, so one epilogue serves both.
 //
-// Shared-memory rows are padded (72 bf16 / 68 f32 per pixel) so that the
-// fragment loads of a warp hit 32 distinct banks.
+// Shared-memory rows are padded (C + 8 bf16 / C + 4 f32 per pixel) so that
+// the fragment loads of a warp hit 32 distinct banks.
+//
+// tap_mma (one tap's product, at stride 1 or 2) and load_tile (one halo tile,
+// from any 64-channel slice of a wider tensor) are also the parts of the
+// weight-streaming conv in block_chain.cu.
 
 #pragma once
 
@@ -21,7 +26,6 @@
 
 namespace dgmsr {
 
-constexpr int C = 64;        // channels of every tiled conv
 constexpr int TH = 8;        // output tile rows
 constexpr int TW = 16;       // output tile cols (one m16 MMA tile per row)
 constexpr int NT = 128;      // threads per block: 4 warps x 2 tile rows
@@ -30,12 +34,12 @@ constexpr int HALO_W = TW + 2;
 
 typedef __nv_bfloat16 bf16;
 
-template <typename T> struct Traits;
-template <> struct Traits<float> {
+template <typename T, int C> struct Traits;
+template <int C> struct Traits<float, C> {
   static constexpr int CS = C + 4;  // padded pixel stride in shared memory
   static constexpr int VEC = 4;     // elements per 16-byte vector
 };
-template <> struct Traits<bf16> {
+template <int C> struct Traits<bf16, C> {
   static constexpr int CS = C + 8;
   static constexpr int VEC = 8;
 };
@@ -78,11 +82,13 @@ template <> __device__ __forceinline__ void store2<bf16>(bf16* p, float a, float
 
 // Epilogues, over v = rnd(acc + bias), the conv's output in T.
 enum Epi {
-  EPI_Y1 = 0,     // y1  = rnd(rnd(mish(v)) + res)
-  EPI_H2 = 1,     // h2  = rnd(mish(v) + tv[b])
-  EPI_OUT = 2,    // out = rnd(rnd(mish(v)) + res) [then rnd(. + cond)]
-  EPI_CONVT = 3,  // y   = v, stored at the (2j+a, 2l+b) phase pixel
-  EPI_TAIL = 4,   // m   = rnd(mish(v)); out = rnd(m . wo + bo)
+  EPI_Y1 = 0,        // y1  = rnd(rnd(mish(v)) + res)
+  EPI_H2 = 1,        // h2  = rnd(mish(v) + tv[b])
+  EPI_OUT = 2,       // out = rnd(rnd(mish(v)) + res) [then rnd(. + cond)]
+  EPI_CONVT = 3,     // y   = v, stored at the (2j+a, 2l+b) phase pixel
+  EPI_TAIL = 4,      // m   = rnd(mish(v)); out = rnd(m . wo + bo)
+  EPI_CONV = 5,      // out = v
+  EPI_CONV_MISH = 6  // out = rnd(mish(v))
 };
 
 struct ConvArgs {
@@ -120,87 +126,92 @@ template <int NTAPS> __device__ __forceinline__ int tap_dx(int t, int pb) {
 // acc[mt][nt][e]: tile row py = 2 * warp + mt; e < 2 at col px = g, e >= 2 at
 // px = g + 8; channel nt * 8 + 2 * (lane & 3) + (e & 1). This is the
 // mma.sync m16n8 accumulator layout, kept by the FMA path too.
-template <typename T, int NTAPS>
-__device__ __forceinline__ void tile_gemm(const T* sx, const T* sw, int pa, int pb,
-                                          float (&acc)[2][8][4]) {
-  constexpr int CS = Traits<T>::CS;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
+template <int C> __device__ __forceinline__ void zero_acc(float (&acc)[2][C / 8][4]) {
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < C / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+}
 
+// acc += the product of one tap: output pixel (py, px) reads the staged
+// input pixel (S * py + dy, S * px + dx) of a halo tile HWD pixels wide, and
+// wt is that tap's (C_out, C_in) weight slab in shared memory.
+template <typename T, int C, int S, int HWD>
+__device__ __forceinline__ void tap_mma(const T* sx, const T* wt, int dy, int dx, float (&acc)[2][C / 8][4]) {
+  constexpr int CS = Traits<T, C>::CS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   if constexpr (sizeof(T) == 2) {
-#pragma unroll 1
-    for (int tap = 0; tap < NTAPS; ++tap) {
-      const int dy = tap_dy<NTAPS>(tap, pa), dx = tap_dx<NTAPS>(tap, pb);
-      const T* wt = sw + tap * C * CS;
 #pragma unroll
-      for (int kc = 0; kc < C / 16; ++kc) {
-        uint32_t a[2][4];
+    for (int kc = 0; kc < C / 16; ++kc) {
+      uint32_t a[2][4];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const T* p0 = sx + ((2 * warp + mt + dy) * HALO_W + g + dx) * CS + kc * 16 + 2 * t4;
-          const T* p1 = p0 + 8 * CS;
-          a[mt][0] = *reinterpret_cast<const uint32_t*>(p0);
-          a[mt][1] = *reinterpret_cast<const uint32_t*>(p1);
-          a[mt][2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-          a[mt][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
-        }
+      for (int mt = 0; mt < 2; ++mt) {
+        const T* p0 = sx + ((S * (2 * warp + mt) + dy) * HWD + S * g + dx) * CS + kc * 16 + 2 * t4;
+        const T* p1 = p0 + 8 * S * CS;
+        a[mt][0] = *reinterpret_cast<const uint32_t*>(p0);
+        a[mt][1] = *reinterpret_cast<const uint32_t*>(p1);
+        a[mt][2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
+        a[mt][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
+      }
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const T* bp = wt + (nt * 8 + g) * CS + kc * 16 + 2 * t4;
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bp);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bp + 8);
-          mma_bf16(acc[0][nt], a[0], b0, b1);
-          mma_bf16(acc[1][nt], a[1], b0, b1);
-        }
+      for (int nt = 0; nt < C / 8; ++nt) {
+        const T* bp = wt + (nt * 8 + g) * CS + kc * 16 + 2 * t4;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bp);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bp + 8);
+        mma_bf16(acc[0][nt], a[0], b0, b1);
+        mma_bf16(acc[1][nt], a[1], b0, b1);
       }
     }
   } else {
-#pragma unroll 1
-    for (int tap = 0; tap < NTAPS; ++tap) {
-      const int dy = tap_dy<NTAPS>(tap, pa), dx = tap_dx<NTAPS>(tap, pb);
-      const T* wt = sw + tap * C * CS + (2 * t4) * CS;
-      const T* x0 = sx + ((2 * warp + dy) * HALO_W + g + dx) * CS;
+    const T* w0p = wt + (2 * t4) * CS;
+    const T* x0 = sx + ((S * 2 * warp + dy) * HWD + S * g + dx) * CS;
 #pragma unroll 4
-      for (int k = 0; k < C; ++k) {
-        float a[2][2];
+    for (int k = 0; k < C; ++k) {
+      float a[2][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        a[mt][0] = to_f(x0[S * mt * HWD * CS + k]);
+        a[mt][1] = to_f(x0[S * mt * HWD * CS + 8 * S * CS + k]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < C / 8; ++nt) {
+        const float w0 = to_f(w0p[nt * 8 * CS + k]);
+        const float w1 = to_f(w0p[nt * 8 * CS + CS + k]);
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
-          a[mt][0] = to_f(x0[mt * HALO_W * CS + k]);
-          a[mt][1] = to_f(x0[mt * HALO_W * CS + 8 * CS + k]);
-        }
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const float w0 = to_f(wt[nt * 8 * CS + k]);
-          const float w1 = to_f(wt[nt * 8 * CS + CS + k]);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            acc[mt][nt][0] += a[mt][0] * w0;
-            acc[mt][nt][1] += a[mt][0] * w1;
-            acc[mt][nt][2] += a[mt][1] * w0;
-            acc[mt][nt][3] += a[mt][1] * w1;
-          }
+          acc[mt][nt][0] += a[mt][0] * w0;
+          acc[mt][nt][1] += a[mt][0] * w1;
+          acc[mt][nt][2] += a[mt][1] * w0;
+          acc[mt][nt][3] += a[mt][1] * w1;
         }
       }
     }
   }
 }
 
-// Stage the (TH+2) x (TW+2) input tile whose top-left halo pixel is
-// (y0 - 1, x0 - 1), 16 bytes per thread and step.
-template <typename T, bool REFLECT, bool PRO>
+template <typename T, int C, int NTAPS>
+__device__ __forceinline__ void tile_gemm(const T* sx, const T* sw, int pa, int pb, float (&acc)[2][C / 8][4]) {
+  constexpr int CS = Traits<T, C>::CS;
+  zero_acc<C>(acc);
+#pragma unroll 1
+  for (int tap = 0; tap < NTAPS; ++tap)
+    tap_mma<T, C, 1, HALO_W>(sx, sw + tap * C * CS, tap_dy<NTAPS>(tap, pa), tap_dx<NTAPS>(tap, pb), acc);
+}
+
+// Stage the HH x HWD input tile whose top-left pixel is (iy0, ix0), channels
+// [coff, coff + C) of a tensor with cstride channels per pixel, 16 bytes per
+// thread and step. Pixels outside the image reflect, or read as zeros.
+template <typename T, int C, int HH, int HWD, bool REFLECT, bool PRO>
 __device__ __forceinline__ void load_tile(T* sx, const T* __restrict__ in, const float* __restrict__ pro_tv,
-                                          int b, int y0, int x0, int H, int W) {
-  constexpr int VEC = Traits<T>::VEC, CH = C / VEC;
-  for (int idx = threadIdx.x; idx < HALO_H * HALO_W * CH; idx += NT) {
+                                          int b, int iy0, int ix0, int H, int W, int cstride = C, int coff = 0) {
+  constexpr int VEC = Traits<T, C>::VEC, CH = C / VEC;
+  for (int idx = threadIdx.x; idx < HH * HWD * CH; idx += NT) {
     const int q = idx / CH, ch = idx - q * CH;
-    const int ty = q / HALO_W, tx = q - ty * HALO_W;
-    int r = y0 - 1 + ty, c = x0 - 1 + tx;
+    const int ty = q / HWD, tx = q - ty * HWD;
+    int r = iy0 + ty, c = ix0 + tx;
     bool inside = true;
     if (REFLECT) {
       r = reflect(r, H);
@@ -209,23 +220,24 @@ __device__ __forceinline__ void load_tile(T* sx, const T* __restrict__ in, const
       inside = r >= 0 && r < H && c >= 0 && c < W;
     }
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (inside) v = __ldg(reinterpret_cast<const uint4*>(in + ((size_t)(b * H + r) * W + c) * C + ch * VEC));
+    if (inside)
+      v = __ldg(reinterpret_cast<const uint4*>(in + ((size_t)(b * H + r) * W + c) * cstride + coff + ch * VEC));
     if (PRO) {
       T* e = reinterpret_cast<T*>(&v);
       const float* tv = pro_tv + b * C + ch * VEC;
 #pragma unroll
       for (int i = 0; i < VEC; ++i) e[i] = from_f<T>(mish(to_f(e[i])) + tv[i]);
     }
-    *reinterpret_cast<uint4*>(sx + q * Traits<T>::CS + ch * VEC) = v;
+    *reinterpret_cast<uint4*>(sx + q * Traits<T, C>::CS + ch * VEC) = v;
   }
 }
 
 // Persistent kernel: each block keeps all taps' weights in shared memory and
 // walks over output tiles (b, tile row, tile col) with stride gridDim.x.
 // blockIdx.y is the ConvT phase (2 * pa + pb) when NTAPS == 4.
-template <typename T, int NTAPS, bool REFLECT, bool PRO, int EPI>
+template <typename T, int C, int NTAPS, bool REFLECT, bool PRO, int EPI>
 __global__ void __launch_bounds__(NT) conv_tile_kernel(const ConvArgs a) {
-  constexpr int CS = Traits<T>::CS, VEC = Traits<T>::VEC, CH = C / VEC;
+  constexpr int CS = Traits<T, C>::CS, VEC = Traits<T, C>::VEC, CH = C / VEC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sw = reinterpret_cast<T*>(smem_raw);
   T* sx = sw + NTAPS * C * CS;
@@ -253,11 +265,11 @@ __global__ void __launch_bounds__(NT) conv_tile_kernel(const ConvArgs a) {
     const int y0 = (rem / tiles_x) * TH, x0 = (rem % tiles_x) * TW;
 
     __syncthreads();  // the previous tile's reads of sx are done
-    load_tile<T, REFLECT, PRO>(sx, in, a.pro_tv, b, y0, x0, H, W);
+    load_tile<T, C, HALO_H, HALO_W, REFLECT, PRO>(sx, in, a.pro_tv, b, y0 - 1, x0 - 1, H, W);
     __syncthreads();
 
-    float acc[2][8][4];
-    tile_gemm<T, NTAPS>(sx, sw, pa, pb, acc);
+    float acc[2][C / 8][4];
+    tile_gemm<T, C, NTAPS>(sx, sw, pa, pb, acc);
 
     if constexpr (EPI == EPI_TAIL) {
       __syncthreads();  // every warp is done reading sx: reuse it for m
@@ -271,7 +283,7 @@ __global__ void __launch_bounds__(NT) conv_tile_kernel(const ConvArgs a) {
         const int oy = y0 + py, ox = x0 + px;
         const bool valid = oy < H && ox < W;
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
+        for (int nt = 0; nt < C / 8; ++nt) {
           const int c = nt * 8 + 2 * t4;
           // the conv's output, rounded to T as the reference's conv returns it
           const float v0 = rnd<T>(acc[mt][nt][2 * half] + a.bias[c]);
@@ -287,7 +299,11 @@ __global__ void __launch_bounds__(NT) conv_tile_kernel(const ConvArgs a) {
             continue;
           }
           const size_t o = ((size_t)(b * H + oy) * W + ox) * C + c;
-          if constexpr (EPI == EPI_H2) {
+          if constexpr (EPI == EPI_CONV) {
+            store2<T>(out + o, v0, v1);
+          } else if constexpr (EPI == EPI_CONV_MISH) {
+            store2<T>(out + o, mish(v0), mish(v1));
+          } else if constexpr (EPI == EPI_H2) {
             store2<T>(out + o, mish(v0) + a.tv[b * C + c], mish(v1) + a.tv[b * C + c + 1]);
           } else {
             const T* res = reinterpret_cast<const T*>(a.res);
@@ -325,10 +341,10 @@ __global__ void __launch_bounds__(NT) conv_tile_kernel(const ConvArgs a) {
 // Launch with the dynamic shared memory the instantiation needs, one or more
 // resident blocks per SM (as occupancy allows) and gridDim.y = phases.
 // Returns cudaGetLastError() after the launch.
-template <typename T, int NTAPS, bool REFLECT, bool PRO, int EPI>
+template <typename T, int C, int NTAPS, bool REFLECT, bool PRO, int EPI>
 int launch_conv(const ConvArgs& a, int phases, cudaStream_t stream) {
-  auto kern = conv_tile_kernel<T, NTAPS, REFLECT, PRO, EPI>;
-  const size_t smem = (size_t)(NTAPS * C + HALO_H * HALO_W) * Traits<T>::CS * sizeof(T);
+  auto kern = conv_tile_kernel<T, C, NTAPS, REFLECT, PRO, EPI>;
+  const size_t smem = (size_t)(NTAPS * C + HALO_H * HALO_W) * Traits<T, C>::CS * sizeof(T);
   static int resident = 0;  // blocks per SM times SMs, fixed per instantiation
   if (resident == 0) {
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

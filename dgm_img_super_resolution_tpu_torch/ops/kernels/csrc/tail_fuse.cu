@@ -34,7 +34,7 @@ int tail(const void* x, const void* wt, const float* bt, const void* wf, const f
   a.w = wt;
   a.bias = bt;
   a.out = y;
-  int err = launch_conv<T, 4, false, false, EPI_CONVT>(a, 4, s);
+  int err = launch_conv<T, 64, 4, false, false, EPI_CONVT>(a, 4, s);
   if (err) return err;
   a.H = 2 * H;
   a.W = 2 * W;
@@ -45,7 +45,7 @@ int tail(const void* x, const void* wt, const float* bt, const void* wf, const f
   a.bo = bo;
   a.cout = cout;
   a.out = out;
-  return launch_conv<T, 9, true, false, EPI_TAIL>(a, 1, s);
+  return launch_conv<T, 64, 9, true, false, EPI_TAIL>(a, 1, s);
 }
 
 }  // namespace

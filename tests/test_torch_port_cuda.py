@@ -31,6 +31,7 @@ def kernels():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from dgm_img_super_resolution_tpu_torch.ops.kernels import block_chain as bc
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import conv3x3 as k3
     from dgm_img_super_resolution_tpu_torch.ops.kernels import tail_fuse as tf
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -39,6 +40,9 @@ def kernels():
         "stem": (bc.block_chain3_stem, bc.block_chain3_stem_plain),
         "chain": (bc.block_chain3, bc.block_chain3_plain),
         "tail": (tf.tail_fuse, tf.tail_fuse_plain),
+        "stem_ds": (bc.block_chain3_stem_ds, bc.block_chain3_stem_ds_plain),
+        "head": (bc.block_chain3_head, bc.block_chain3_head_plain),
+        "conv3x3": (k3.conv3x3, k3.conv3x3_plain),
     }
 
 
@@ -46,7 +50,7 @@ def _rel_err(got, want):
     return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp(min=1.0)).item()
 
 
-@pytest.mark.parametrize("region", ["stem", "chain", "tail"])
+@pytest.mark.parametrize("region", ["stem", "chain", "tail", "stem_ds", "head", "conv3x3"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("b,h,w", SHAPES)
 def test_kernel_matches_plain(kernels, region, dtype, tol, b, h, w):
@@ -57,14 +61,33 @@ def test_kernel_matches_plain(kernels, region, dtype, tol, b, h, w):
     torch.cuda.synchronize()
     assert kern.launches == before + 1
     want = plain(*args)
-    assert got.shape == want.shape and got.dtype == want.dtype
-    assert got.is_contiguous(memory_format=torch.channels_last)
-    assert _rel_err(got, want) <= tol
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for g, wt in zip(got, want):
+        assert g.shape == wt.shape and g.dtype == wt.dtype
+        assert g.is_contiguous(memory_format=torch.channels_last)
+        assert _rel_err(g, wt) <= tol
+
+
+@pytest.mark.parametrize("c", [32, 64])
+@pytest.mark.parametrize("border", ["zero", "reflect"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_conv3x3_widths_borders_and_odd_sizes(kernels, c, border, dtype, tol):
+    conv, plain = kernels["conv3x3"]
+    g = torch.Generator().manual_seed(c)
+    for b, h, w in ((1, 2, 3), (2, 13, 21), (1, 33, 17)):
+        x = torch.randn(b, c, h, w, generator=g).to("cuda", dtype).contiguous(memory_format=torch.channels_last)
+        wc = (torch.randn(c, c, 3, 3, generator=g) / (3 * c**0.5)).cuda()
+        bc = (torch.randn(c, generator=g) * 0.1).cuda()
+        for act in (False, True):
+            assert _rel_err(conv(x, wc, bc, border, act), plain(x, wc, bc, border, act)) <= tol
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(kernels):
     stem, _ = kernels["stem"]
     chain, _ = kernels["chain"]
+    stem_ds, _ = kernels["stem_ds"]
+    head, _ = kernels["head"]
+    conv, _ = kernels["conv3x3"]
     args = Regions(1, 16, 16, torch.float32, "cuda").chain
     nchw = (args[0].contiguous(),) + args[1:]
     with pytest.raises(ValueError, match="channels_last"):
@@ -78,6 +101,77 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(kernels):
         stem(x32, wa, *narrow[2:])
     with pytest.raises(ValueError, match="several devices"):
         chain(*((args[0].cpu(),) + args[1:]))
+
+    ds_args = Regions(1, 10, 14, torch.float32, "cuda").stem_ds
+    with pytest.raises(ValueError, match="even H, W"):
+        stem_ds(ds_args[0][:, :, :9], *ds_args[1:])
+    head_args = Regions(1, 16, 16, torch.float32, "cuda").head
+    x96 = head_args[0][:, :96].contiguous(memory_format=torch.channels_last)
+    wa96 = head_args[2][:, :192].contiguous()
+    wr96 = head_args[4][:, :192].contiguous()
+    with pytest.raises(ValueError, match="multiples of 64"):
+        head(x96, x96, wa96, head_args[3], wr96, *head_args[5:])
+    with pytest.raises(ValueError, match="channels_last"):
+        head(head_args[0].contiguous(), *head_args[1:])
+    x = torch.randn(1, 16, 8, 8, device="cuda").contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="C=32 and C=64"):
+        conv(x, torch.zeros(16, 16, 3, 3, device="cuda"), torch.zeros(16, device="cuda"))
+    x = torch.randn(1, 32, 8, 8, device="cuda")
+    w32, b32 = torch.zeros(32, 32, 3, 3, device="cuda"), torch.zeros(32, device="cuda")
+    with pytest.raises(ValueError, match="channels_last"):
+        conv(x, w32, b32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        conv(x.half().contiguous(memory_format=torch.channels_last), w32, b32)
+    with pytest.raises(ValueError, match="several devices"):
+        conv(x.contiguous(memory_format=torch.channels_last), w32.cpu(), b32)
+
+
+@pytest.fixture
+def group_norm():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import group_norm as gn
+
+    return gn
+
+
+GN_SHAPES = [  # (N, C, H, W, groups): ragged; vector and scalar paths; one group over many blocks
+    (2, 64, 13, 7, 32), (2, 256, 16, 16, 32), (1, 64, 128, 128, 32), (1, 48, 33, 31, 16), (3, 32, 1, 1, 8),
+]
+
+
+@pytest.mark.parametrize("n,c,h,w,groups", GN_SHAPES)
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_group_norm_matches_plain(group_norm, n, c, h, w, groups, channels_last, dtype, tol):
+    g = torch.Generator().manual_seed(c + h)
+    x = (torch.randn(n, c, h, w, generator=g) * 2 + 0.5).to("cuda", dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    scale, bias = (1 + 0.1 * torch.randn(c, generator=g)).cuda(), (0.1 * torch.randn(c, generator=g)).cuda()
+    for act in (None, "silu"):
+        before = group_norm.fused_group_norm.launches
+        got = group_norm.fused_group_norm(x, scale, bias, groups, 1e-5, act)
+        torch.cuda.synchronize()
+        assert group_norm.fused_group_norm.launches == before + 1
+        want = group_norm.fused_group_norm_plain(x, scale, bias, groups, 1e-5, act)
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert got.is_contiguous(memory_format=torch.channels_last if channels_last else torch.contiguous_format)
+        assert _rel_err(got, want) <= tol
+
+
+def test_group_norm_refusals(group_norm):
+    fgn = group_norm.fused_group_norm
+    x = torch.randn(1, 64, 8, 8, device="cuda")
+    s = torch.ones(64, device="cuda")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fgn(x.half(), s, s)
+    with pytest.raises(ValueError, match="several devices"):
+        fgn(x, s.cpu(), s)
+    with pytest.raises(ValueError, match="multiple of groups"):
+        fgn(x, s, s, groups=48)
+    with pytest.raises(ValueError, match="NCHW-contiguous or a channels_last"):
+        fgn(x[:, :, :, ::2], s, s)
 
 
 FLASH_SHAPES = [(2, 1024, 8, 128), (1, 1089, 2, 64), (1, 70, 3, 128), (2, 64, 1, 64)]  # (B, L, H, D)

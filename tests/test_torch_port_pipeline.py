@@ -26,7 +26,7 @@ from dgm_img_super_resolution_tpu_torch.ckpt.jax_params import jax_params_to_sta
 from dgm_img_super_resolution_tpu_torch.core.config import Hparams
 from dgm_img_super_resolution_tpu_torch.inference import SRDiffPipeline
 
-from torch_port_helpers import random_jax_params
+from torch_port_helpers import jax_noise, random_jax_params
 
 BASE = dict(hidden_size=8, rrdb_num_block=2, rrdb_num_feat=8, timesteps=8,
             unet_dim_mults="1|2|3|4", compute_dtype="float32")
@@ -34,15 +34,6 @@ SAMPLERS = {
     "ddim4_eta1": dict(sampler="ddim", sample_timesteps=4, ddim_eta=1.0),
     "ancestral_T8": dict(sampler="ddpm"),
 }
-
-
-def jax_noise(key, shape_nhwc, ts):
-    """The JAX samplers' noise stream, as NCHW tensors for the port's hook."""
-    k_init, k_steps = jax.random.split(key)
-    to_t = lambda a: torch.from_numpy(np.ascontiguousarray(np.transpose(np.asarray(a), (0, 3, 1, 2))))  # noqa: E731
-    x_t = to_t(jax.random.normal(k_init, shape_nhwc))
-    steps = {int(t): to_t(jax.random.normal(jax.random.fold_in(k_steps, int(t)), shape_nhwc)) for t in ts}
-    return x_t, steps
 
 
 @pytest.mark.parametrize("sampler", sorted(SAMPLERS))

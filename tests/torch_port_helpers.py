@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax
+import torch
 
 from dgm_img_super_resolution_tpu.models.factory import build_srdiff, init_srdiff_params
 
@@ -28,6 +29,15 @@ def random_jax_params(hp, seed):
         return out
 
     return d, fill(shapes)
+
+
+def jax_noise(key, shape_nhwc, ts):
+    """The JAX samplers' noise stream, as NCHW tensors for the port's hook."""
+    k_init, k_steps = jax.random.split(key)
+    to_t = lambda a: torch.from_numpy(np.ascontiguousarray(np.transpose(np.asarray(a), (0, 3, 1, 2))))  # noqa: E731
+    x_t = to_t(jax.random.normal(k_init, shape_nhwc))
+    steps = {int(t): to_t(jax.random.normal(jax.random.fold_in(k_steps, int(t)), shape_nhwc)) for t in ts}
+    return x_t, steps
 
 
 # Tiny SD configs under the published schemas (as tests/test_sd_torch_parity.py)
