@@ -9,22 +9,28 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    versions, and build the hand-written kernels from
    ``dgm_img_super_resolution_tpu_torch/ops/kernels/csrc``.
 2. Hold each SRDiff kernel against its plain PyTorch version on the card: in
-   bf16 at the main path's shapes (batch 8, 512x512 HR), and in float32 with
-   TF32 off at edge shapes; time both with CUDA events, and the one PyTorch
-   call that computes the same function where there is one.
+   bf16 at the main path's shapes (batch 8, 512x512 HR; the wide chain at
+   the three stage shapes of configuration C), and in float32 with TF32 off
+   at edge shapes (the chain at C = 32 and 96-256 on a ragged 13x21); time
+   both with CUDA events, and the one PyTorch call that computes the same
+   function where there is one.
 3. Serve the default full-width config (hidden 64, mults 1|2|3|4, RRDB nb 8,
    seeded random weights) with DDIM 20 steps, eta 1, bf16: batch 8 of
-   128x128 uint8 -> (8, 512, 512, 3) uint8, under three configurations of
+   128x128 uint8 -> (8, 512, 512, 3) uint8, under four configurations of
    the kernel switches (``models/layers.py``): the defaults; A,
    ``DGMSR_PALLAS_DS=1 DGMSR_PALLAS_HEAD=1``; B, ``DGMSR_PALLAS_FUSED=0
-   DGMSR_PALLAS_TAIL=0 DGMSR_PALLAS_CONV=1``. Each is warmed up, then the
-   kernels' launch counters are set to 0 just before its timed batch and
-   read just after, and must equal the counts each configuration implies.
+   DGMSR_PALLAS_TAIL=0 DGMSR_PALLAS_CONV=1``; C, ``DGMSR_CHAIN_C=64,128,192,256``
+   (every ResnetBlock pair through the chain kernel). Each is warmed up,
+   then the kernels' launch counters are set to 0 just before its timed
+   batch and read just after, and must equal the counts each configuration
+   implies (the chain's per width).
 4. Run the full-width model in float32 at LR 32x32 on the card (kernels) and
    on the CPU (plain versions) with the same weights and injected noise: one
-   UNet forward and a ddim4 serve on the card under the defaults, A and B,
-   and for a hidden-32 model under the defaults and with
-   ``DGMSR_PALLAS_CONV=1``, each against one CPU reference per model.
+   UNet forward and a ddim4 serve on the card under the defaults, A, B and
+   C; for a hidden-32 model under the defaults, with
+   ``DGMSR_PALLAS_CONV=1`` and with ``DGMSR_CHAIN_C=32,64,96,128``; and for a
+   hidden-128 model with mults 1|2 under ``DGMSR_CHAIN_C=128,256``; each
+   against one CPU reference per model.
 5. Hold the flash-attention kernel against its plain version: bf16 at the SD
    path's shape (2, 1024, 8, 128), float32 at a ragged L=1089 and at D=64;
    time it beside its plain version and ``F.scaled_dot_product_attention``
@@ -88,17 +94,27 @@ CONFIGS = {
     "default": {},
     "A": {"DGMSR_PALLAS_DS": "1", "DGMSR_PALLAS_HEAD": "1"},
     "B": {"DGMSR_PALLAS_FUSED": "0", "DGMSR_PALLAS_TAIL": "0", "DGMSR_PALLAS_CONV": "1"},
+    "C": {"DGMSR_CHAIN_C": "64,128,192,256"},
 }
 # Launches per 20-step batch of the full-width model: a UNet call runs the
 # stem, chain and tail regions once each by default; under A the stem with
 # the Downsample folded in, the head-fused chain and the tail; under B seven
 # C->C Block convs (3 in down stage 0, 3 in the last up stage, the final
-# Block) and no region.
+# Block) and no region; under C the stem, the tail and seven chains (down
+# stages 1-3, the mid pair, up stages 0-2). block_chain3_c<C> counts the
+# chain's launches at width C.
 SERVE_LAUNCHES = {
-    "default": {"block_chain3_stem": 20, "block_chain3": 20, "tail_fuse": 20},
+    "default": {"block_chain3_stem": 20, "block_chain3": 20, "block_chain3_c64": 20, "tail_fuse": 20},
     "A": {"block_chain3_stem_ds": 20, "block_chain3_head": 20, "tail_fuse": 20},
     "B": {"conv3x3": 140},
+    "C": {"block_chain3_stem": 20, "block_chain3": 140, "block_chain3_c64": 20, "block_chain3_c128": 40,
+          "block_chain3_c192": 40, "block_chain3_c256": 40, "tail_fuse": 20},
 }
+# The wide chain's shapes on C's path at batch 8, 512x512 HR (B, C, H, W):
+# down stage 1 (C = 128 also runs up stage 1 at 128x128), down stage 2 (and
+# up stage 0 at 64x64), down stage 3 and the mid pair.
+WIDE_SHAPES = ((8, 128, 256, 256), (8, 192, 128, 128), (8, 256, 64, 64))
+WIDE_F32_WIDTHS = (32, 96, 128, 192, 256)  # on a ragged (2, C, 13, 21); 32 is the resident kernel's
 # The SD path's GroupNorm shapes: a UNet level-0 ResBlock at LR 256 (CFG
 # batch 2) and the VAE decoder's last up block at 1024x1024.
 GN_SHAPES = (((2, 256, 256, 256), 1e-5), ((1, 128, 1024, 1024), 1e-6))
@@ -216,6 +232,29 @@ class Regions:
         self.conv3x3_work = (2.0 * b * h * w * 9 * c * c, esize * 2 * b * h * w * c + 4 * 9 * c * c)
 
 
+def chain_inputs(b, c, h, w, dtype, device, seed=0, cond=False):
+    """Random arguments of ``block_chain3`` at width ``c`` (a_pre, r1, tv1,
+    tv2, wb, bb, wc, bc, wd, bd, cond), and its FLOP and byte counts."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def act():
+        t = torch.randn(b, c, h, w, generator=g)
+        return t.to(device=device, dtype=dtype).contiguous(memory_format=torch.channels_last)
+
+    def param(*shape, scale):
+        return (torch.randn(shape, generator=g) * scale).to(device)
+
+    def vec():
+        return (torch.randn(b, c, generator=g) * 0.5).to(device=device, dtype=dtype)
+
+    convs = [t for _ in range(3) for t in (param(c, c, 3, 3, scale=(9 * c) ** -0.5), param(c, scale=0.1))]
+    args = (act(), act(), vec(), vec(), *convs, act() if cond else None)
+    esize = torch.finfo(dtype).bits // 8
+    return args, (2.0 * b * h * w * 27 * c * c, esize * b * h * w * (3 + cond) * c + 4 * 27 * c * c)
+
+
 def phase_build(out_dir):
     from dgm_img_super_resolution_tpu_torch.ops.kernels import _build
 
@@ -267,11 +306,29 @@ def _check(label, got, want, tol, failures) -> float:
     return err
 
 
+def _timed_row(name, kern, plain, args, work, source, replaces, failures, label, library=None) -> dict:
+    """Hold a kernel against its plain version in bf16, time both (and the
+    library call, if any) and return its table row."""
+    err = _check(f"bf16 {name:20s} {label}", kern(*args), plain(*args), BF16_TOL, failures)
+    ms = cuda_ms(lambda: kern(*args))
+    plain_ms = cuda_ms(lambda: plain(*args))
+    library_ms = None if library is None else cuda_ms(library)
+    flops, nbytes = work
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16)
+    print(f"bf16 {name:20s} {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+          f"{'none' if library_ms is None else f'{library_ms:.3f} ms'}, bound {bound_ms:.3f} ms ({bound_by}); "
+          f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB", flush=True)
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": None, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
 def phase_kernels():
     """Each SRDiff kernel against its plain version; returns the table rows."""
     import torch
     import torch.nn.functional as F
 
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import block_chain as bc
     from dgm_img_super_resolution_tpu_torch.ops.kernels import conv3x3 as k3
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -293,34 +350,51 @@ def phase_kernels():
         wc, bc_ = torch.randn(c, c, 3, 3, generator=g).cuda() / (3 * c**0.5), torch.randn(c, generator=g).cuda()
         _check(f"f32  conv3x3 C={c} {border} mish={act} B={b} {h}x{w}", k3.conv3x3(x, wc, bc_, border, act),
                k3.conv3x3_plain(x, wc, bc_, border, act), F32_TOL, failures)
+    # the chain at the other widths: C = 32 on the resident kernel, 96-256 on
+    # the wide one (NB = 32 at 96), with the condition, on a ragged shape
+    for c in WIDE_F32_WIDTHS:
+        args, _ = chain_inputs(2, c, 13, 21, torch.float32, "cuda", seed=c, cond=True)
+        _check(f"f32  block_chain3 C={c} cond B=2 13x21", bc.block_chain3(*args), bc.block_chain3_plain(*args),
+               F32_TOL, failures)
     # bf16 at the main path's shapes
     r = Regions(8, 512, 512, torch.bfloat16, "cuda", seed=1)
     for name, (kern, plain, attr, source, replaces) in fns.items():
         args = getattr(r, attr)
-        err = _check(f"bf16 {name:20s} main shape", kern(*args), plain(*args), BF16_TOL, failures)
-        ms = cuda_ms(lambda: kern(*args))
-        plain_ms = cuda_ms(lambda: plain(*args))
-        library_ms = None
+        library = None
         if name == "conv3x3":
             # the yardstick: cuDNN's zero-padded conv with bias, no Mish
             x, wc, bc_ = args[:3]
-            w16 = wc.to(x.dtype).contiguous(memory_format=torch.channels_last)
-            library_ms = cuda_ms(lambda: F.conv2d(x, w16, bc_.to(x.dtype), padding=1))
+            w16, b16 = wc.to(x.dtype).contiguous(memory_format=torch.channels_last), bc_.to(x.dtype)
+            library = lambda: F.conv2d(x, w16, b16, padding=1)  # noqa: E731
         # else the plain version is a composition of cuDNN calls and
         # elementwise ops: no single PyTorch call computes the region
-        flops, nbytes = getattr(r, f"{attr}_work")
-        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16)
-        print(f"bf16 {name:20s} main shape: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
-              f"{'none' if library_ms is None else f'{library_ms:.3f} ms'}, bound {bound_ms:.3f} ms ({bound_by}); "
-              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB", flush=True)
-        rows.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": None, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-        })
+        rows.append(_timed_row(name, kern, plain, args, getattr(r, f"{attr}_work"), source, replaces, failures,
+                               "main shape", library))
     del r
     torch.cuda.empty_cache()
+    # the wide chain at configuration C's stage shapes (row 2's wide mode)
+    for b, c, h, w in WIDE_SHAPES:
+        args, work = chain_inputs(b, c, h, w, torch.bfloat16, "cuda", seed=c)
+        row = _timed_row(f"block_chain3_c{c}", bc.block_chain3, bc.block_chain3_plain, args, work,
+                         KERNEL_SRC + "chain_wide.cu", TPU_SRC + "block_chain.py:311", failures, str((b, c, h, w)))
+        rows.append(dict(row, shape=[b, c, h, w]))
+        del args
+    torch.cuda.empty_cache()
     return rows, failures
+
+
+def _reset_counts(counters):
+    for fn in counters.values():
+        fn.launches = 0
+    counters["block_chain3"].launches_by_c.clear()
+
+
+def _read_counts(counters) -> dict:
+    """The launches of every wrapper, and of block_chain3 at each width C as
+    block_chain3_c<C>."""
+    got = {name: fn.launches for name, fn in counters.items()}
+    got.update({f"block_chain3_c{c}": n for c, n in sorted(counters["block_chain3"].launches_by_c.items())})
+    return got
 
 
 def _serve(pipe, imgs, counters):
@@ -330,12 +404,11 @@ def _serve(pipe, imgs, counters):
 
     gen = torch.Generator(device="cuda").manual_seed(0)  # the same noise in every configuration
     torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
+    _reset_counts(counters)
     t0 = time.perf_counter()
     out = pipe.upscale_batch_device(imgs, generator=gen, as_uint8=True)
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, {name: fn.launches for name, fn in counters.items()}
+    return out, time.perf_counter() - t0, _read_counts(counters)
 
 
 def phase_pipeline(rows):
@@ -358,23 +431,22 @@ def phase_pipeline(rows):
             pipe.upscale_batch_device(imgs, as_uint8=True)  # warm-up
             torch.cuda.reset_peak_memory_stats()
             out, dt, launches = _serve(pipe, imgs, counters)
-        want = {name: SERVE_LAUNCHES[cfg].get(name, 0) for name in counters}
-        if launches != want:
-            failures.append(f"config {cfg}: launches {launches}, expected {want}")
+        launches = {k: v for k, v in launches.items() if v}
+        if launches != SERVE_LAUNCHES[cfg]:
+            failures.append(f"config {cfg}: launches {launches}, expected {SERVE_LAUNCHES[cfg]}")
         if tuple(out.shape) != (8, 512, 512, 3) or out.dtype != torch.uint8 or not out.is_cuda:
             failures.append(f"config {cfg}: pipeline output {tuple(out.shape)} {out.dtype} {out.device}")
         for row in rows:  # each row's count from the first configuration whose path runs it
             if row["launches"] is None and SERVE_LAUNCHES[cfg].get(row["name"]):
-                row["launches"] = launches[row["name"]]
+                row["launches"] = launches.get(row["name"], 0)
                 row["launches_config"] = cfg
         outs[cfg] = out
         res[cfg] = {"img_per_s": 8 / dt, "batch8_s": dt, "launches": launches,
                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                     "out_mean": float(out.float().mean())}
         print(f"pipeline ddim20 eta=1 bf16 B=8 128->512, config {cfg} {env}: {8 / dt:.2f} img/s "
-              f"({dt:.3f} s/batch), peak {res[cfg]['peak_mem_gib']:.2f} GiB, launches "
-              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
-    for cfg in ("A", "B"):
+              f"({dt:.3f} s/batch), peak {res[cfg]['peak_mem_gib']:.2f} GiB, launches {launches}", flush=True)
+    for cfg in ("A", "B", "C"):
         # bf16 rounds at other places in each configuration; the served
         # images agree to a few levels of 255
         d = (outs[cfg].int() - outs["default"].int()).abs().float()
@@ -400,11 +472,14 @@ def phase_card_vs_cpu():
     """Models in float32 on the card (kernels) and on the CPU (plain
     versions), same weights: one UNet forward on the same inputs, then the
     whole serve (DDIM 4 steps, eta 1) with the same injected noise. The
-    full-width model runs on the card under each configuration, and a
-    hidden-32 model (whose C = 64 stages reach the chain kernel, and whose
-    C = 32 Blocks the conv3x3 kernel under DGMSR_PALLAS_CONV=1) under two;
-    each against one CPU reference per model (in float32 the CPU's result
-    does not depend on the switches)."""
+    full-width model runs on the card under each configuration; a hidden-32
+    model (whose C = 64 stages reach the chain kernel, whose C = 32 Blocks
+    the conv3x3 kernel under DGMSR_PALLAS_CONV=1, and whose every pair the
+    chain at C = 32, 64, 96 and 128 under C32) under three; a hidden-128
+    model with mults 1|2 under C128 (its down stage 0 fails the stem gate
+    and takes the cuDNN head and the chain at C = 128); each against one CPU
+    reference per model (in float32 the CPU's result does not depend on the
+    switches)."""
     import numpy as np
     import torch
 
@@ -414,14 +489,18 @@ def phase_card_vs_cpu():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counters = _counters()
+    chain = lambda *widths: ("block_chain3",) + tuple(f"block_chain3_c{c}" for c in widths)  # noqa: E731
     models = {
-        "hidden64": ({}, {"default": ("block_chain3_stem", "block_chain3", "tail_fuse"),
+        "hidden64": ({}, {"default": ("block_chain3_stem", *chain(64), "tail_fuse"),
                           "A": ("block_chain3_stem_ds", "block_chain3_head", "tail_fuse"),
-                          "B": ("conv3x3",)}),
-        "hidden32": ({"hidden_size": 32}, {"default": ("block_chain3",),
-                                           "conv": ("block_chain3", "conv3x3")}),
+                          "B": ("conv3x3",),
+                          "C": ("block_chain3_stem", *chain(64, 128, 192, 256), "tail_fuse")}),
+        "hidden32": ({"hidden_size": 32}, {"default": chain(64), "conv": (*chain(64), "conv3x3"),
+                                           "C32": chain(32, 64, 96, 128)}),
+        "hidden128": ({"hidden_size": 128, "unet_dim_mults": "1|2"}, {"C128": chain(128, 256)}),
     }
-    envs = dict(CONFIGS, conv={"DGMSR_PALLAS_CONV": "1"})
+    envs = dict(CONFIGS, conv={"DGMSR_PALLAS_CONV": "1"}, C32={"DGMSR_CHAIN_C": "32,64,96,128"},
+                C128={"DGMSR_CHAIN_C": "128,256"})
     res, failures = {}, []
     for model, (over, runs) in models.items():
         hp = Hparams(sampler="ddim", sample_timesteps=4, ddim_eta=1.0, compute_dtype="float32", **over)
@@ -441,12 +520,11 @@ def phase_card_vs_cpu():
         t_cpu = time.perf_counter() - t0
         for cfg, want in runs.items():
             with switches(**envs[cfg]):
-                for fn in counters.values():
-                    fn.launches = 0
+                _reset_counts(counters)
                 with torch.inference_mode():
                     eps = gpu.model.denoise_fn(x.cuda(), t.cuda(), cond.cuda()).cpu()
                 got = gpu.upscale_batch(imgs, noise=noise)
-            launched = {k: fn.launches for k, fn in counters.items() if fn.launches}
+            launched = {k: v for k, v in _read_counts(counters).items() if v}
             eps_err, eps_rel = rel_err(eps, eps_ref)
             err = float(np.abs(got - ref).max())
             ok_eps = eps_rel <= F32_TOL
@@ -602,14 +680,13 @@ def _sd_serve(pipe, lr: int, steps: int):
     img = np.random.default_rng(lr).integers(0, 256, (lr, lr, 3), dtype=np.uint8)
     counters = _counters()
     torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
+    _reset_counts(counters)
     t0 = time.perf_counter()
     out = pipe.upscale_device(SD_PROMPT, img, num_inference_steps=steps, guidance_scale=9.0,
                               noise_level=20, eta=0.0)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    return out, dt, {name: fn.launches for name, fn in counters.items()}
+    return out, dt, _read_counts(counters)
 
 
 def phase_sd_serve(rows):

@@ -26,6 +26,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dgm_img_super_resolution_tpu_torch.ops.kernels._common import CHAIN_WIDTHS
+
 _CHAIN_CHANNELS = (64,)
 
 
@@ -35,15 +37,17 @@ def _switch(name: str, default: str) -> bool:
 
 def chain_channels() -> tuple[int, ...]:
     """ResnetBlock-pair widths routed to the chain kernels: ``DGMSR_CHAIN_C``
-    (comma-separated), default 64. The port's chain kernels are built for
-    C = 64 only: the JAX kernel's unpacked C >= 128 mode is not ported, so
-    naming another width raises."""
+    (comma-separated), default 64. The port's chain kernels take every
+    multiple of 32 from 32 to 512 (every stage of the hidden-32, -64 and
+    -128 UNets at ``1|2|3|4``); naming another width raises, where the JAX
+    package takes any width in interpret mode."""
     env = os.environ.get("DGMSR_CHAIN_C")
     chans = tuple(int(v) for v in env.split(",")) if env else _CHAIN_CHANNELS
-    if set(chans) - {64}:
+    bad = sorted(set(chans) - set(CHAIN_WIDTHS))
+    if bad:
         raise NotImplementedError(
-            f"DGMSR_CHAIN_C={env}: the port's chain kernels take C=64 only "
-            "(the C>=128 unpacked mode is not ported)"
+            f"DGMSR_CHAIN_C={env}: the port's chain kernels take C in multiples of 32 "
+            f"from 32 to 512, not C={', '.join(map(str, bad))}"
         )
     return chans
 

@@ -13,7 +13,8 @@
 Regions go to the kernel wrappers of ``ops/kernels`` through the gates of
 ``models/layers.py``, exactly where the JAX package's ``unet.py:141-372``
 sends them to its Pallas kernels: a ResnetBlock pair of a width in the chain
-set (C = 64) to ``block_chain3``, or, for down stage 0, to
+set (``DGMSR_CHAIN_C``, default C = 64) to ``block_chain3``, or, for down
+stage 0 at C = 64, to
 ``block_chain3_stem`` (with the Downsample folded in, ``block_chain3_stem_ds``,
 when DS is on), or, for an up stage whose ``x`` and ``skip`` match, to
 ``block_chain3_head`` when HEAD is on; the last Upsample, final Block and

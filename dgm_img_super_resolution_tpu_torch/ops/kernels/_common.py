@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-C = 64  # channels of the stem, chain, head and tail kernels
+C = 64  # channels of the stem, head and tail kernels
+CHAIN_WIDTHS = tuple(range(32, 513, 32))  # channels the chain kernels take
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -48,9 +49,11 @@ def check_param(name: str, t: torch.Tensor, shape: tuple[int, ...]) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
-def check_width(c: int, h: int, w: int) -> None:
-    if c != C:
-        raise ValueError(f"the CUDA kernels are instantiated for C={C}, got C={c}")
+def check_width(c: int, h: int, w: int, widths: tuple[int, ...] = (C,)) -> None:
+    """``c`` one of the widths the kernel is built for; H, W >= 2."""
+    if c not in widths:
+        built = f"C={widths[0]}" if len(widths) == 1 else f"C in {widths[0]}..{widths[-1]} by {widths[1] - widths[0]}"
+        raise ValueError(f"the CUDA kernel is built for {built}, got C={c}")
     if h < 2 or w < 2:
         raise ValueError(f"reflect padding needs H, W >= 2, got {h}x{w}")
 

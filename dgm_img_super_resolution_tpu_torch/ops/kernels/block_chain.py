@@ -4,13 +4,15 @@ package's ``ops/pallas/block_chain.py``).
 ``block_chain3_stem`` is down stage 0 (stem conv 3->C, 1x1 residual conv and
 the three chained reflect 3x3 C->C convs, plus the RRDB condition);
 ``block_chain3_stem_ds`` is the same with the stage's Downsample folded in;
-``block_chain3`` is the chain from ``h1`` on, for the last up stage, and
-``block_chain3_head`` the same with the stage's head conv over ``[x ||
-skip]`` and its 1x1 residual conv in front. Each has a plain PyTorch version
-(the CPU path, and the yardstick the card is held against) and a
-hand-written CUDA kernel in ``csrc/block_chain.cu`` for CUDA tensors.
-Tensors are NCHW-shaped; on the card activations must be ``channels_last``
-so that the kernels see NHWC memory.
+``block_chain3`` is the chain from ``h1`` on, for every other ResnetBlock
+pair of a width in the chain set, and ``block_chain3_head`` the same with
+the stage's head conv over ``[x || skip]`` and its 1x1 residual conv in
+front. Each has a plain PyTorch version (the CPU path, and the yardstick the
+card is held against) and hand-written CUDA kernels for CUDA tensors:
+``csrc/block_chain.cu`` (C = 64, and the chain alone at C = 32) and, for the
+chain at 96 to 512 channels, ``csrc/chain_wide.cu``. Tensors are
+NCHW-shaped; on the card activations must be ``channels_last`` so that the
+kernels see NHWC memory.
 """
 
 from __future__ import annotations
@@ -67,19 +69,23 @@ def block_chain3_head_plain(x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, w
     return block_chain3_plain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd)
 
 
-def stream_taps(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(C_out, C_in, k, k) conv weight -> (C_in / 64, k * k, C_out, 64) in
-    ``dtype``: one (tap, C_out, 64) slab per 64-channel slice of the input,
-    the layout of ``csrc/block_chain.cu:conv_stream_kernel``."""
+RESIDENT_WIDTHS = (32, 64)  # chain widths whose weights stay in shared memory (block_chain.cu)
+
+
+def stream_taps(w: torch.Tensor, dtype: torch.dtype, ks: int = 64) -> torch.Tensor:
+    """(C_out, C_in, k, k) conv weight -> (C_in / ks, k * k, C_out, ks) in
+    ``dtype``: one (tap, C_out, ks) slab per ks-channel slice of the input,
+    the layout of the weight-streaming convs (``csrc/block_chain.cu:
+    conv_stream_kernel``, ks = 64; ``csrc/chain_wide.cu``, ks = 32)."""
     co, ci, kh, kw = w.shape
-    w = w.reshape(co, ci // 64, 64, kh, kw).permute(1, 3, 4, 0, 2)
-    return w.reshape(ci // 64, kh * kw, co, 64).to(dtype).contiguous()
+    w = w.reshape(co, ci // ks, ks, kh, kw).permute(1, 3, 4, 0, 2)
+    return w.reshape(ci // ks, kh * kw, co, ks).to(dtype).contiguous()
 
 
 def _check_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
     K.dtype_code(a_pre)
     b, c, h, w = a_pre.shape
-    K.check_width(c, h, w)
+    K.check_width(c, h, w, K.CHAIN_WIDTHS)
     for name, t in (("a_pre", a_pre), ("r1", r1), ("cond", cond)):
         if t is not None:
             K.check_act(name, t, (b, c, h, w), a_pre.dtype)
@@ -92,36 +98,47 @@ def _check_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
 
 
 def _launch_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
+    """Three conv launches: of the resident-weight kernel at C in
+    ``RESIDENT_WIDTHS``, of the wide kernel (weights streamed over K in
+    32-channel slices, 64 or 32 output channels a block) above."""
     b, c, h, w = a_pre.shape
     dt = a_pre.dtype
     y1 = torch.empty_like(a_pre)
     h2 = torch.empty_like(a_pre)
     out = torch.empty_like(a_pre)
-    args = [K.f32(tv1, dt), K.f32(tv2, dt), K.conv_taps(wb, dt), K.f32(bb, dt),
-            K.conv_taps(wc, dt), K.f32(bc, dt), K.conv_taps(wd, dt), K.f32(bd, dt)]
-    fn = function("block_chain", "dgmsr_block_chain3", 14, 3)
+    if c in RESIDENT_WIDTHS:
+        taps, fn = K.conv_taps, function("block_chain", "dgmsr_block_chain3", 14, 4)
+    else:
+        taps, fn = lambda w_, d: stream_taps(w_, d, 32), function("chain_wide", "dgmsr_chain_wide", 14, 4)
+    args = [K.f32(tv1, dt), K.f32(tv2, dt), taps(wb, dt), K.f32(bb, dt),
+            taps(wc, dt), K.f32(bc, dt), taps(wd, dt), K.f32(bd, dt)]
     rc = fn(K.dtype_code(a_pre), a_pre.data_ptr(), r1.data_ptr(),
             *(t.data_ptr() for t in args),
             cond.data_ptr() if cond is not None else None,
-            y1.data_ptr(), h2.data_ptr(), out.data_ptr(), b, h, w, K.stream_ptr())
-    K.raise_on_error(rc, "block_chain3")
+            y1.data_ptr(), h2.data_ptr(), out.data_ptr(), c, b, h, w, K.stream_ptr())
+    K.raise_on_error(rc, f"block_chain3 (C={c})")
     return out
 
 
 def block_chain3(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond=None):
     """The chain from h1 on (see :func:`block_chain3_plain`). ``a_pre``,
     ``r1``, ``cond``: (B,C,H,W) activations; ``tv1``/``tv2``: (B,C) time
-    vectors; ``w*``/``b*``: (C,C,3,3)/(C,) conv params. CPU tensors run the
-    plain version; CUDA tensors launch the kernel (3 tiled-conv launches)."""
+    vectors; ``w*``/``b*``: (C,C,3,3)/(C,) conv params; C a multiple of 32
+    from 32 to 512. CPU tensors run the plain version; CUDA tensors launch
+    the kernel (3 conv launches). ``launches`` counts every width,
+    ``launches_by_c`` each."""
     if K.on_cpu(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
         return block_chain3_plain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
     _check_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
     out = _launch_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
+    c = a_pre.shape[1]
     block_chain3.launches += 1
+    block_chain3.launches_by_c[c] = block_chain3.launches_by_c.get(c, 0) + 1
     return out
 
 
 block_chain3.launches = 0
+block_chain3.launches_by_c = {}
 
 
 def _launch_stem(x, wa, ba, wr, br):

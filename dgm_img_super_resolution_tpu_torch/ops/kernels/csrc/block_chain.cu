@@ -4,7 +4,9 @@
 //   _block_chain3_stem_pallas (down stage 0: stem conv 3->C, 1x1 residual,
 //                              three reflect 3x3 C->C convs, RRDB cond add;
 //                              with has_ds, also the stage's Downsample)
-//   _block_chain3_pallas      (the last up stage: the same chain from h1 on)
+//   _block_chain3_pallas      (the same chain from h1 on, for every other pair
+//                              of width 64; here also at 32; chain_wide.cu
+//                              takes the wider stages)
 //   _block_chain3_head_pallas (the last up stage with its head conv over the
 //                              [x || skip] join and its 1x1 residual in front)
 // as their *_reference compositions define them:
@@ -50,7 +52,7 @@ using namespace dgmsr;
 
 namespace {
 
-constexpr int C = 64;  // channels of the chain
+constexpr int C = 64;  // channels of the stem, the head, the Downsample and the chain (also 32)
 
 // Stem: a_pre = rnd(reflect_conv3x3(x, wa) + ba) (3 -> C) and
 // r1 = rnd(x . wr + br) (1x1, 3 -> C). The K dim is 27 + 3, too thin for the
@@ -114,7 +116,10 @@ __global__ void __launch_bounds__(STEM_PIX * 8) stem_kernel(const T* __restrict_
   }
 }
 
-template <typename T>
+// The chain from h1 on at CC channels (64, or 32 for the outer stages of a
+// hidden-32 UNet): three launches of the resident-weight tiled conv. Wider
+// chains stream their weights instead (chain_wide.cu).
+template <typename T, int CC>
 int chain3(const void* a_pre, const void* r1, const float* tv1, const float* tv2, const void* wb, const float* bb,
            const void* wc, const float* bc, const void* wd, const float* bd, const void* cond, void* y1, void* h2,
            void* out, int B, int H, int W, cudaStream_t s) {
@@ -129,7 +134,7 @@ int chain3(const void* a_pre, const void* r1, const float* tv1, const float* tv2
   a.pro_tv = tv1;
   a.res = r1;
   a.out = y1;
-  int err = launch_conv<T, C, 9, true, true, EPI_Y1>(a, 1, s);
+  int err = launch_conv<T, CC, 9, true, true, EPI_Y1>(a, 1, s);
   if (err) return err;
   a.in = y1;
   a.w = wc;
@@ -138,7 +143,7 @@ int chain3(const void* a_pre, const void* r1, const float* tv1, const float* tv2
   a.tv = tv2;
   a.res = nullptr;
   a.out = h2;
-  if ((err = launch_conv<T, C, 9, true, false, EPI_H2>(a, 1, s))) return err;
+  if ((err = launch_conv<T, CC, 9, true, false, EPI_H2>(a, 1, s))) return err;
   a.in = h2;
   a.w = wd;
   a.bias = bd;
@@ -146,7 +151,7 @@ int chain3(const void* a_pre, const void* r1, const float* tv1, const float* tv2
   a.res = y1;
   a.cond = cond;
   a.out = out;
-  return launch_conv<T, C, 9, true, false, EPI_OUT>(a, 1, s);
+  return launch_conv<T, CC, 9, true, false, EPI_OUT>(a, 1, s);
 }
 
 
@@ -301,18 +306,20 @@ int head(const void* x, const void* skip, const void* wa, const float* ba, const
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Activations are NHWC and contiguous;
-// conv weights are (9, C_out, C_in) in the activation dtype; biases and time
-// vectors are float32. y1 and h2 are scratch of the activations' shape.
-// Returns cudaGetLastError() after the last launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16; c: 64 or 32 channels. Activations are
+// NHWC and contiguous; conv weights are (9, C_out, C_in) in the activation
+// dtype; biases and time vectors are float32. y1 and h2 are scratch of the
+// activations' shape. Returns cudaGetLastError() after the last launch (0 on
+// success).
 int dgmsr_block_chain3(int dtype, const void* a_pre, const void* r1, const void* tv1, const void* tv2, const void* wb,
                        const void* bb, const void* wc, const void* bc, const void* wd, const void* bd,
-                       const void* cond, void* y1, void* h2, void* out, int B, int H, int W, void* stream) {
+                       const void* cond, void* y1, void* h2, void* out, int c, int B, int H, int W, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  if (dtype == 1)
-    return chain3<bf16>(a_pre, r1, f(tv1), f(tv2), wb, f(bb), wc, f(bc), wd, f(bd), cond, y1, h2, out, B, H, W, s);
-  return chain3<float>(a_pre, r1, f(tv1), f(tv2), wb, f(bb), wc, f(bc), wd, f(bd), cond, y1, h2, out, B, H, W, s);
+  if (c != C && c != 32) return (int)cudaErrorInvalidValue;
+  decltype(&chain3<float, C>) fn = dtype == 1 ? (c == C ? &chain3<bf16, C> : &chain3<bf16, 32>)
+                                              : (c == C ? &chain3<float, C> : &chain3<float, 32>);
+  return fn(a_pre, r1, f(tv1), f(tv2), wb, f(bb), wc, f(bc), wd, f(bd), cond, y1, h2, out, B, H, W, s);
 }
 
 // x is (B, H, W, 3); wa is (27, C) float32 ordered (dy, dx, c_in); wr is

@@ -15,8 +15,8 @@
 // the fragment loads of a warp hit 32 distinct banks.
 //
 // tap_mma (one tap's product, at stride 1 or 2) and load_tile (one halo tile,
-// from any 64-channel slice of a wider tensor) are also the parts of the
-// weight-streaming conv in block_chain.cu.
+// from any 32- or 64-channel slice of a wider tensor) are also the parts of
+// the weight-streaming convs in block_chain.cu and chain_wide.cu.
 
 #pragma once
 
@@ -137,9 +137,10 @@ template <int C> __device__ __forceinline__ void zero_acc(float (&acc)[2][C / 8]
 
 // acc += the product of one tap: output pixel (py, px) reads the staged
 // input pixel (S * py + dy, S * px + dx) of a halo tile HWD pixels wide, and
-// wt is that tap's (C_out, C_in) weight slab in shared memory.
-template <typename T, int C, int S, int HWD>
-__device__ __forceinline__ void tap_mma(const T* sx, const T* wt, int dy, int dx, float (&acc)[2][C / 8][4]) {
+// wt is that tap's (N, C) weight slab in shared memory: C input channels (K)
+// and N output channels, N = C but for the wide chain's N slices.
+template <typename T, int C, int S, int HWD, int N = C>
+__device__ __forceinline__ void tap_mma(const T* sx, const T* wt, int dy, int dx, float (&acc)[2][N / 8][4]) {
   constexpr int CS = Traits<T, C>::CS;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -157,7 +158,7 @@ __device__ __forceinline__ void tap_mma(const T* sx, const T* wt, int dy, int dx
         a[mt][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
       }
 #pragma unroll
-      for (int nt = 0; nt < C / 8; ++nt) {
+      for (int nt = 0; nt < N / 8; ++nt) {
         const T* bp = wt + (nt * 8 + g) * CS + kc * 16 + 2 * t4;
         const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bp);
         const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bp + 8);
@@ -177,7 +178,7 @@ __device__ __forceinline__ void tap_mma(const T* sx, const T* wt, int dy, int dx
         a[mt][1] = to_f(x0[S * mt * HWD * CS + 8 * S * CS + k]);
       }
 #pragma unroll
-      for (int nt = 0; nt < C / 8; ++nt) {
+      for (int nt = 0; nt < N / 8; ++nt) {
         const float w0 = to_f(w0p[nt * 8 * CS + k]);
         const float w1 = to_f(w0p[nt * 8 * CS + CS + k]);
 #pragma unroll
@@ -203,7 +204,9 @@ __device__ __forceinline__ void tile_gemm(const T* sx, const T* sw, int pa, int 
 
 // Stage the HH x HWD input tile whose top-left pixel is (iy0, ix0), channels
 // [coff, coff + C) of a tensor with cstride channels per pixel, 16 bytes per
-// thread and step. Pixels outside the image reflect, or read as zeros.
+// thread and step. Pixels outside the image reflect, or read as zeros. PRO
+// applies the chain's prologue rnd(mish(in) + pro_tv[b]), pro_tv being
+// (B, cstride).
 template <typename T, int C, int HH, int HWD, bool REFLECT, bool PRO>
 __device__ __forceinline__ void load_tile(T* sx, const T* __restrict__ in, const float* __restrict__ pro_tv,
                                           int b, int iy0, int ix0, int H, int W, int cstride = C, int coff = 0) {
@@ -224,7 +227,7 @@ __device__ __forceinline__ void load_tile(T* sx, const T* __restrict__ in, const
       v = __ldg(reinterpret_cast<const uint4*>(in + ((size_t)(b * H + r) * W + c) * cstride + coff + ch * VEC));
     if (PRO) {
       T* e = reinterpret_cast<T*>(&v);
-      const float* tv = pro_tv + b * C + ch * VEC;
+      const float* tv = pro_tv + (size_t)b * cstride + coff + ch * VEC;
 #pragma unroll
       for (int i = 0; i < VEC; ++i) e[i] = from_f<T>(mish(to_f(e[i])) + tv[i]);
     }

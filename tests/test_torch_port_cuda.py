@@ -19,7 +19,7 @@ it against the row's max.
 import pytest
 import torch
 
-from chip_smoke import Regions
+from chip_smoke import Regions, chain_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -82,6 +82,25 @@ def test_conv3x3_widths_borders_and_odd_sizes(kernels, c, border, dtype, tol):
             assert _rel_err(conv(x, wc, bc, border, act), plain(x, wc, bc, border, act)) <= tol
 
 
+@pytest.mark.parametrize("c", [32, 96, 128, 192, 256])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,h,w", [(2, 13, 21), (1, 2, 35)])
+def test_chain_at_every_width(kernels, c, dtype, tol, b, h, w):
+    """The chain off C = 64: the resident kernel at 32, the wide kernel
+    above (N slices of 32 channels at 96, of 64 at 128-256), with the
+    condition; H and W not multiples of the 8x16 tile. Counted per width."""
+    chain, plain = kernels["chain"]
+    args, _ = chain_inputs(b, c, h, w, dtype, "cuda", seed=c + h, cond=True)
+    before, before_c = chain.launches, chain.launches_by_c.get(c, 0)
+    got = chain(*args)
+    torch.cuda.synchronize()
+    assert chain.launches == before + 1 and chain.launches_by_c[c] == before_c + 1
+    want = plain(*args)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert _rel_err(got, want) <= tol
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(kernels):
     stem, _ = kernels["stem"]
     chain, _ = kernels["chain"]
@@ -101,6 +120,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(kernels):
         stem(x32, wa, *narrow[2:])
     with pytest.raises(ValueError, match="several devices"):
         chain(*((args[0].cpu(),) + args[1:]))
+    for c in (80, 544):
+        with pytest.raises(ValueError, match=f"32..512 by 32, got C={c}"):
+            chain(*chain_inputs(1, c, 4, 4, torch.float32, "cuda")[0])
 
     ds_args = Regions(1, 10, 14, torch.float32, "cuda").stem_ds
     with pytest.raises(ValueError, match="even H, W"):

@@ -213,9 +213,12 @@ def test_gates(monkeypatch, config):
 
     monkeypatch.setenv("DGMSR_CHAIN_C", "64")
     assert L.chain_eligible(256, 256, 64)
-    for v in ("64,128", "32"):
+    monkeypatch.setenv("DGMSR_CHAIN_C", "64,128")
+    assert L.chain_eligible(256, 256, 64) and L.chain_eligible(256, 256, 128)
+    assert not L.chain_eligible(256, 256, 192)
+    for v, bad in (("100", "C=100"), ("64,544", "C=544"), ("16,128", "C=16")):
         monkeypatch.setenv("DGMSR_CHAIN_C", v)
-        with pytest.raises(NotImplementedError, match="C=64"):
+        with pytest.raises(NotImplementedError, match=bad):
             L.chain_eligible(256, 256, 64)
     monkeypatch.delenv("DGMSR_CHAIN_C")
     for v in ("0", "false", ""):

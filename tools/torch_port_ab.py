@@ -7,9 +7,10 @@ Serves the default full-width SRDiff config (seeded random weights, bf16,
 DDIM ``--steps`` steps with eta 1, batch 8 of 128x128 uint8 LR -> 512x512)
 under each configuration of the kernel switches of ``chip_smoke.CONFIGS``
 (the defaults; A, the Downsample fold and the head-fused chain; B, the
-per-conv conv3x3 in place of the three regions), in turns: every round
-runs the configurations in order and then in reverse (default, A, B, B,
-A, default), ``--batches`` timed batches each, after one warm-up batch per
+per-conv conv3x3 in place of the three regions; C, every ResnetBlock pair
+through the chain kernel), in turns: every round runs the configurations in
+order and then in reverse (default, A, B, C, C, B, A, default),
+``--batches`` timed batches each, after one warm-up batch per
 configuration. The same noise (a generator seeded 0) for every batch.
 Prints each configuration's median img/s with its spread, and one JSON line
 with every batch time. Needs one CUDA device and nvcc; run from the root of

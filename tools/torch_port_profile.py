@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of one serve goes on the GPU (the PyTorch port).
 
-    python3 tools/torch_port_profile.py [--model srdiff|sd] [--config default|A|B] [--batch N] [--steps 20]
+    python3 tools/torch_port_profile.py [--model srdiff|sd] [--config default|A|B|C] [--batch N] [--steps 20]
                                         [--lr PX] [--out DIR]
 
 ``--model srdiff`` (default) serves the default full-width SRDiff config
 (seeded random weights, bf16, DDIM ``--steps`` steps with eta 1, batch
 ``--batch`` (8) of 128x128 uint8 LR -> 512x512) under the kernel switches
-of ``--config`` (``chip_smoke.CONFIGS``: the defaults, A or B). ``--model sd`` serves the SD
+of ``--config`` (``chip_smoke.CONFIGS``: the defaults, A, B or C). ``--model sd`` serves the SD
 x4-upscaler at the published widths (seeded random weights, bf16, DDIM
 ``--steps`` steps with eta 0, guidance 9, noise level 20, batch ``--batch``
 (1) of ``--lr``-square (256) uint8 LR -> x4). Each serves once to warm up,
@@ -29,7 +29,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def kernel_class(name: str) -> str:
-    if any(k in name for k in ("conv_tile_kernel", "stem_kernel", "conv_stream_kernel")):
+    if any(k in name for k in ("conv_tile_kernel", "stem_kernel", "conv_stream_kernel", "chain_wide_kernel")):
         return "port kernels (convs and regions)"
     if "flash_kernel" in name:
         return "port kernel (flash attention)"
@@ -44,7 +44,7 @@ def kernel_class(name: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("srdiff", "sd"), default="srdiff")
-    ap.add_argument("--config", choices=("default", "A", "B"), default="default",
+    ap.add_argument("--config", choices=("default", "A", "B", "C"), default="default",
                     help="SRDiff kernel switches (chip_smoke.CONFIGS)")
     ap.add_argument("--batch", type=int, default=None, help="images per serve (srdiff 8, sd 1)")
     ap.add_argument("--steps", type=int, default=20)
