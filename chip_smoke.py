@@ -31,22 +31,33 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    ``DGMSR_PALLAS_CONV=1`` and with ``DGMSR_CHAIN_C=32,64,96,128``; and for a
    hidden-128 model with mults 1|2 under ``DGMSR_CHAIN_C=128,256``; each
    against one CPU reference per model.
-5. Hold the flash-attention kernel against its plain version: bf16 at the SD
-   path's shape (2, 1024, 8, 128), float32 at a ragged L=1089 and at D=64;
-   time it beside its plain version and ``F.scaled_dot_product_attention``
-   (the yardstick only; the port never calls it).
-6. Hold ``fused_group_norm`` against its plain version: bf16 at the SD UNet's
+5. Backward: the full-width UNet forward and backward in float32 on the card
+   under each configuration (B=2 at 64x64 HR), every parameter's gradient
+   against the CPU's on the same weights and inputs. The forward's launch
+   counts must be one UNet call's share of the serve's; the backward
+   recomputes the regions' plain versions (``ops/kernels/_autograd.py``) and
+   launches nothing.
+6. Hold the flash-attention kernel against its plain version: bf16 at the SD
+   path's shape (2, 1024, 8, 128), at a ragged L = 1089, at D = 64, at
+   Lq != Lk both ways and with logits x8; float32 at a ragged L, D = 64 and
+   one short tile. Time it in turns with ``F.scaled_dot_product_attention``
+   (the yardstick only; the port never calls it), 5 rounds of 50 calls
+   each: launched one by one with CUDA events, as every kernel row is timed
+   (the row's ``ms`` and ``library_ms``), and replayed from a CUDA graph
+   (``ms_graph``, ``library_ms_graph``: device time without the host's
+   launch overhead); and once beside its plain version.
+7. Hold ``fused_group_norm`` against its plain version: bf16 at the SD UNet's
    (2, 256, 256, 256) and the SD VAE decoder's (1, 128, 1024, 1024), float32
    at edge shapes in both layouts; time it beside its plain version and
    ``F.silu(F.group_norm(...))``. Nothing calls it on a serve path.
-7. Serve the SD x4-upscaler at the published widths (seeded random weights,
+8. Serve the SD x4-upscaler at the published widths (seeded random weights,
    bf16, DDIM 20 steps eta 0, guidance 9, noise level 20): one 256x256
    uint8 image -> (1, 1024, 1024, 3), where the flash kernel runs 120 times
    (6 level-3 and mid self-attentions of 1024 tokens per UNet call), then
    the app's 128x128 point -> (1, 512, 512, 3), where it runs 0 times.
    Each size is warmed up with a 2-step serve; the launch counters are set
    to 0 just before each timed serve and read just after.
-8. The published-width UNet in float32 on the card and on the CPU at latent
+9. The published-width UNet in float32 on the card and on the CPU at latent
    32x32 (plain attention), and one level-3 Transformer2D on 32x32 tokens
    (the flash kernel on the card, its plain version on the CPU).
 
@@ -83,9 +94,15 @@ F32_TOL = 1e-4       # the same in float32 (TF32 off on both sides)
 E2E_TOL = 1e-2
 # Flash attention against its plain version, relative to max |plain| alone
 # (outputs are convex mixes of v). bf16: the kernel rounds p to bf16 against
-# the running max of each 64-key tile, the plain version against the row max.
+# the running max of each 128-key tile, the plain version against the row max.
 FLASH_SHAPE = (2, 1024, 8, 128)  # (B, L, H, D): CFG batch, level-3 tokens at LR 256, 8 heads of 128
 FLASH_F32_SHAPES = ((1, 1089, 8, 128), (2, 1024, 4, 64), (1, 70, 2, 64))  # ragged L, D=64, one short tile
+# bf16 beyond the main shape, (B, Lq, Lk, H, D, logit scale): ragged L (LR 264),
+# D = 64, Lq != Lk both ways, and logits x8 (q scaled), whose running max
+# moves from tile to tile
+FLASH_BF16_CASES = ((1, 1089, 1089, 8, 128, 1), (2, 1024, 1024, 4, 64, 1), (1, 100, 333, 2, 64, 1),
+                    (1, 333, 100, 2, 128, 1), (2, 1024, 1024, 8, 128, 8))
+FLASH_ROUNDS, FLASH_CALLS = 5, 50  # kernel and SDPA timed in turns
 SD_PROMPT = "a photo of a cat, high resolution, detailed"
 # The kernel switches of models/layers.py, and the configurations served.
 SWITCHES = ("DGMSR_PALLAS_FUSED", "DGMSR_PALLAS_STEM", "DGMSR_PALLAS_TAIL", "DGMSR_PALLAS_DS",
@@ -159,6 +176,47 @@ def cuda_ms(fn, iters: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 50) -> float:
+    """Device time of one call: ``iters`` calls captured in a CUDA graph and
+    replayed, so that the host's launch overhead (some 12-20 us a call
+    through Python, more than half of what flash takes) is not counted."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_in_turns(fn_a, fn_b, timer) -> tuple[list[float], list[float]]:
+    """``FLASH_ROUNDS`` readings of ``timer(fn, iters=FLASH_CALLS)`` for each
+    of two functions, taken in turns (a b a b ...), so that both see the
+    same clocks and the same neighbours on the card."""
+    a, b = [], []
+    for _ in range(FLASH_ROUNDS):
+        a.append(timer(fn_a, iters=FLASH_CALLS))
+        b.append(timer(fn_b, iters=FLASH_CALLS))
+    return a, b
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
 
 
 def rel_err(a, b) -> tuple[float, float]:
@@ -545,11 +603,108 @@ def phase_card_vs_cpu():
     return res, failures
 
 
-def flash_inputs(b, l, h, d, dtype, seed):
+GRAD_TOL = 1e-3  # card vs CPU float32 gradients, of max |CPU grad| per parameter
+BACKWARD_HR = 64  # HR side of the backward phase (down stages at 64, 32, 16, 8)
+
+
+def unet_grads(unet, x, t, cond, r, counters=None):
+    """With grad on, eps = unet(x, t, cond) and the gradient of sum(eps * r)
+    with respect to every parameter; (eps, {name: grad}, the kernels'
+    launches in the forward alone) when ``counters`` is given."""
+    import torch
+
+    unet.zero_grad(set_to_none=True)
+    if counters is not None:
+        _reset_counts(counters)
+    with torch.enable_grad():
+        eps = unet(x, t, cond)
+        launched = {k: v for k, v in _read_counts(counters).items() if v} if counters is not None else None
+        (eps.float() * r).sum().backward()
+    return eps.detach(), {n: p.grad for n, p in unet.named_parameters()}, launched
+
+
+def grad_errors(got, want) -> tuple[float, list[str]]:
+    """The largest max |got - want| / max |want| over the parameters, and
+    the names of those that are missing, not finite or past GRAD_TOL."""
+    import torch
+
+    worst, bad = 0.0, []
+    for name, w in want.items():
+        g = got.get(name)
+        if g is None or not bool(torch.isfinite(g).all()):
+            bad.append(name)
+            continue
+        rel = (g.detach().float().cpu() - w.float()).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        worst = max(worst, rel)
+        if rel > GRAD_TOL:
+            bad.append(name)
+    return worst, bad
+
+
+def backward_inputs(seed=5):
+    """x, t, cond and the cotangent r of the backward phase, on the CPU."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
-    return [torch.randn(b, l, h, d, generator=g).to("cuda", dtype) for _ in range(3)]
+    hr, lr = BACKWARD_HR, BACKWARD_HR // 4
+    x, cond = torch.randn(2, 3, hr, hr, generator=g), torch.randn(2, 96, lr, lr, generator=g)
+    return x, torch.tensor([99, 33]), cond, torch.randn(2, 3, hr, hr, generator=g)
+
+
+def phase_backward():
+    """The full-width (hidden 64) UNet forward and backward in float32 on
+    the card under each configuration, against the CPU's gradients on the
+    same weights and inputs. The forward's launch counts are one UNet call's
+    share of the serve's (``SERVE_LAUNCHES`` / 20), so the path went through
+    the kernels; the backward recomputes the plain versions and launches
+    none."""
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.inference import SRDiffPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hp = Hparams(compute_dtype="float32")
+    cpu = SRDiffPipeline(hp, device="cpu").model
+    gpu = SRDiffPipeline(hp, params=cpu.state_dict()).model.denoise_fn
+    cpu = cpu.denoise_fn
+    x, t, cond, r = backward_inputs()
+    eps_ref, want, _ = unet_grads(cpu, x, t, cond, r)
+    counters = _counters()
+    res, failures = {}, []
+    for cfg, env in CONFIGS.items():
+        with switches(**env):
+            t0 = time.perf_counter()
+            eps, got, launched = unet_grads(gpu, x.cuda(), t.cuda(), cond.cuda(), r.cuda(), counters)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        after = {k: v for k, v in _read_counts(counters).items() if v}
+        expect = {k: v // 20 for k, v in SERVE_LAUNCHES[cfg].items()}
+        _, eps_rel = rel_err(eps.cpu(), eps_ref)
+        worst, bad = grad_errors(got, want)
+        ok = not bad and eps_rel <= F32_TOL and launched == expect and after == launched
+        print(f"backward f32 hidden64 config {cfg}: B=2 {BACKWARD_HR}x{BACKWARD_HR}, {len(want)} parameters, "
+              f"max grad err {worst:.3e} of max |CPU grad| (tol {GRAD_TOL}), eps rel {eps_rel:.3e}, forward "
+              f"launches {launched} (expected {expect}), after backward {after}, {dt * 1e3:.1f} ms "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"backward {cfg}: bad grads {bad[:5]}, launches {launched} / {after}")
+        res[cfg] = {"max_grad_rel_err": worst, "bad": bad, "eps_rel_err": eps_rel, "launches": launched,
+                    "fwd_bwd_s": dt}
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return res, failures
+
+
+def flash_inputs(b, l, h, d, dtype, seed, lk=None, scale=1.0):
+    """q (B, L, H, D) times ``scale``, k and v (B, lk or L, H, D)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, l, h, d, generator=g) * scale
+    k, v = (torch.randn(b, lk or l, h, d, generator=g) for _ in range(2))
+    return [t.to("cuda", dtype) for t in (q, k, v)]
 
 
 def phase_flash():
@@ -571,28 +726,47 @@ def phase_flash():
               f"{'ok' if ok else 'FAIL'} (tol {F32_TOL} of max |plain|)", flush=True)
         if not ok:
             failures.append(f"flash_attention f32 {shape}")
+    for b, lq, lk, h, d, sc in FLASH_BF16_CASES:
+        q, k, v = flash_inputs(b, lq, h, d, torch.bfloat16, seed=lq + lk, lk=lk, scale=sc)
+        want = fa.flash_attention_reference(q, k, v).float()
+        err = (fa.flash_attention(q, k, v).float() - want).abs().max().item()
+        ok = err <= BF16_TOL * want.abs().max().item()
+        print(f"bf16 flash_attention     B={b} Lq={lq} Lk={lk} H={h} D={d} logits x{sc}: max_abs_err {err:.3e} "
+              f"{'ok' if ok else 'FAIL'} (tol {BF16_TOL} of max |plain|)", flush=True)
+        if not ok:
+            failures.append(f"flash_attention bf16 {(b, lq, lk, h, d, sc)}")
     b, l, h, d = FLASH_SHAPE
     q, k, v = flash_inputs(b, l, h, d, torch.bfloat16, seed=1)
     want = fa.flash_attention_reference(q, k, v)
     err = (fa.flash_attention(q, k, v).float() - want.float()).abs().max().item()
     ok = err <= BF16_TOL * want.float().abs().max().item()
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), iters=50)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # SDPA's (B, H, L, D), as views
-    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=50)
+    kern = lambda: fa.flash_attention(q, k, v)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+    # ms and library_ms: launched one by one (CUDA events over FLASH_CALLS
+    # calls), as every row is timed; beside them the device time alone
+    eager, eager_sdpa = time_in_turns(kern, sdpa, cuda_ms)
+    graph, graph_sdpa = time_in_turns(kern, sdpa, graph_ms)
+    ms, sdpa_ms, ms_graph, sdpa_ms_graph = (median(x) for x in (eager, eager_sdpa, graph, graph_sdpa))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v))
     flops, nbytes = 4.0 * b * h * l * l * d, 4 * b * l * h * d * 2
     bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16)
+    span = lambda xs: f"{min(xs):.4f}-{max(xs):.4f}"  # noqa: E731
     print(f"bf16 flash_attention     {FLASH_SHAPE}: max_abs_err {err:.3e} {'ok' if ok else 'FAIL'} "
-          f"(tol {BF16_TOL} of max |plain|); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"SDPA {sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); {flops / 1e9:.2f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB", flush=True)
+          f"(tol {BF16_TOL} of max |plain|); {FLASH_ROUNDS} rounds of {FLASH_CALLS} calls in turns, medians: "
+          f"kernel {ms:.4f} ms ({span(eager)}), SDPA {sdpa_ms:.4f} ms ({span(eager_sdpa)}) launched one by one; "
+          f"kernel {ms_graph:.4f} ms ({span(graph)}, {flops / ms_graph / 1e9:.0f} TFLOP/s), SDPA "
+          f"{sdpa_ms_graph:.4f} ms ({span(graph_sdpa)}) by CUDA-graph replay; plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB", flush=True)
     if not ok:
         failures.append("flash_attention bf16 main shape")
     row = {"name": "flash_attention", "route": "cuda",
            "source": "dgm_img_super_resolution_tpu_torch/ops/kernels/csrc/flash_attention.cu",
            "replaces": "dgm_img_super_resolution_tpu/ops/pallas/attention.py:59",
            "launches": None, "max_abs_err": err, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_ms}
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_ms,
+           "ms_rounds": eager, "library_ms_rounds": eager_sdpa, "ms_graph": ms_graph,
+           "library_ms_graph": sdpa_ms_graph, "ms_graph_rounds": graph, "library_ms_graph_rounds": graph_sdpa}
     return row, failures
 
 
@@ -825,19 +999,20 @@ def main() -> int:
     rows, failures = phase_kernels()
     pipe, f3 = phase_pipeline(rows)
     e2e, f4 = phase_card_vs_cpu()
+    bwd, f4b = phase_backward()
     flash_row, f5 = phase_flash()
     gn_row, f6 = phase_group_norm()
     rows += [flash_row, gn_row]
     sd, f7 = phase_sd_serve([flash_row, gn_row])
     sd_e2e, f8 = phase_sd_card_vs_cpu()
-    failures += f3 + f4 + f5 + f6 + f7 + f8
+    failures += f3 + f4 + f4b + f5 + f6 + f7 + f8
     missing = [row["name"] for row in rows if row["launches"] is None]
     if missing:
         failures.append(f"no launch count for {missing}")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if args.out:
         (args.out / "chip_smoke.json").write_text(json.dumps(
-            {"card": card, "kernels": rows, "pipeline": pipe, "card_vs_cpu": e2e, "sd": sd,
+            {"card": card, "kernels": rows, "pipeline": pipe, "card_vs_cpu": e2e, "backward": bwd, "sd": sd,
              "sd_card_vs_cpu": sd_e2e, "failures": failures}, indent=1))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

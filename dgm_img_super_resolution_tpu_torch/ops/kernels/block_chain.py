@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from dgm_img_super_resolution_tpu_torch.models.layers import mish, reflect_conv3x3
 from dgm_img_super_resolution_tpu_torch.ops.kernels import _common as K
+from dgm_img_super_resolution_tpu_torch.ops.kernels._autograd import region
 from dgm_img_super_resolution_tpu_torch.ops.kernels._build import function
 
 
@@ -125,10 +126,16 @@ def block_chain3(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond=None):
     ``r1``, ``cond``: (B,C,H,W) activations; ``tv1``/``tv2``: (B,C) time
     vectors; ``w*``/``b*``: (C,C,3,3)/(C,) conv params; C a multiple of 32
     from 32 to 512. CPU tensors run the plain version; CUDA tensors launch
-    the kernel (3 conv launches). ``launches`` counts every width,
+    the kernel (3 conv launches), differentiable through the plain version
+    (``_autograd.region``). ``launches`` counts every width,
     ``launches_by_c`` each."""
-    if K.on_cpu(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
-        return block_chain3_plain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
+    args = (a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
+    if K.on_cpu(*args):
+        return block_chain3_plain(*args)
+    return region(_block_chain3_cuda, block_chain3_plain, *args)
+
+
+def _block_chain3_cuda(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
     _check_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
     out = _launch_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
     c = a_pre.shape[1]
@@ -172,8 +179,13 @@ def block_chain3_stem(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond=
     stem conv; ``wr``/``br``: (C,3,1,1)/(C,) residual conv; the rest as
     :func:`block_chain3`. CUDA tensors launch the kernel (a stem launch and
     3 tiled-conv launches)."""
-    if K.on_cpu(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
-        return block_chain3_stem_plain(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
+    args = (x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
+    if K.on_cpu(*args):
+        return block_chain3_stem_plain(*args)
+    return region(_block_chain3_stem_cuda, block_chain3_stem_plain, *args)
+
+
+def _block_chain3_stem_cuda(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
     a_pre, r1 = _launch_stem(x, wa, ba, wr, br)
     _check_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
     out = _launch_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
@@ -191,8 +203,13 @@ def block_chain3_stem_ds(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, co
     stride-2 conv. Returns ``(out, ds_out)``; H and W must be even. CUDA
     tensors launch the kernel (the stem's 4 launches and a stride-2 conv
     launch)."""
-    if K.on_cpu(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond, wds, bds):
-        return block_chain3_stem_ds_plain(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond, wds, bds)
+    args = (x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond, wds, bds)
+    if K.on_cpu(*args):
+        return block_chain3_stem_ds_plain(*args)
+    return region(_block_chain3_stem_ds_cuda, block_chain3_stem_ds_plain, *args)
+
+
+def _block_chain3_stem_ds_cuda(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond, wds, bds):
     b, _, h, w = x.shape
     if h % 2 or w % 2:
         raise ValueError(f"the Downsample fold needs even H, W, got {h}x{w}")
@@ -224,8 +241,13 @@ def block_chain3_head(x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd)
     conv; the rest as :func:`block_chain3`. CUDA tensors launch the kernel
     (two head launches, then 3 tiled-conv launches); C_s must be a multiple
     of 64."""
-    if K.on_cpu(x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd):
-        return block_chain3_head_plain(x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd)
+    args = (x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd)
+    if K.on_cpu(*args):
+        return block_chain3_head_plain(*args)
+    return region(_block_chain3_head_cuda, block_chain3_head_plain, *args)
+
+
+def _block_chain3_head_cuda(x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd):
     dt = x.dtype
     code = K.dtype_code(x)
     b, cs, h, w = x.shape

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from dgm_img_super_resolution_tpu_torch.models import layers
 from dgm_img_super_resolution_tpu_torch.ops.kernels import _common as K
+from dgm_img_super_resolution_tpu_torch.ops.kernels._autograd import region
 from dgm_img_super_resolution_tpu_torch.ops.kernels._build import function
 
 BORDERS = ("zero", "reflect")
@@ -34,11 +35,16 @@ def conv3x3_plain(x, w, b, border: str = "zero", mish: bool = False):
 def conv3x3(x, w, b, border: str = "zero", mish: bool = False):
     """x: (B,C,H,W); w: (C,C,3,3); b: (C,). ``border``: "zero" (SAME) or
     "reflect" (ReflectionPad(1)); ``mish`` applies Mish after the bias. CUDA
-    tensors launch the kernel (one launch)."""
+    tensors launch the kernel (one launch), differentiable through the plain
+    version."""
     if border not in BORDERS:
         raise ValueError(f"border must be one of {BORDERS}, got {border!r}")
     if K.on_cpu(x, w, b):
         return conv3x3_plain(x, w, b, border, mish)
+    return region(_conv3x3_cuda, conv3x3_plain, x, w, b, border, mish)
+
+
+def _conv3x3_cuda(x, w, b, border, mish):
     dt = x.dtype
     code = K.dtype_code(x)
     n, c, h, wd = x.shape

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from dgm_img_super_resolution_tpu_torch.models.layers import mish, reflect_conv3x3
 from dgm_img_super_resolution_tpu_torch.ops.kernels import _common as K
+from dgm_img_super_resolution_tpu_torch.ops.kernels._autograd import region
 from dgm_img_super_resolution_tpu_torch.ops.kernels._build import function
 
 
@@ -42,9 +43,15 @@ def tail_fuse(x, wt, bt, wf, bf, wo, bo):
     """x: (B,C,H,W) the last up stage's output -> (B,out_dim,2H,2W).
     ``wt``/``bt``: ConvT params; ``wf``/``bf``: (C,C,3,3)/(C,) final Block
     conv; ``wo``/``bo``: (out_dim,C,1,1)/(out_dim,) final 1x1 conv. CUDA
-    tensors launch the kernel (a ConvT launch and a conv + 1x1 launch)."""
-    if K.on_cpu(x, wt, bt, wf, bf, wo, bo):
-        return tail_fuse_plain(x, wt, bt, wf, bf, wo, bo)
+    tensors launch the kernel (a ConvT launch and a conv + 1x1 launch),
+    differentiable through the plain version."""
+    args = (x, wt, bt, wf, bf, wo, bo)
+    if K.on_cpu(*args):
+        return tail_fuse_plain(*args)
+    return region(_tail_fuse_cuda, tail_fuse_plain, *args)
+
+
+def _tail_fuse_cuda(x, wt, bt, wf, bf, wo, bo):
     dt = x.dtype
     code = K.dtype_code(x)
     b, c, h, w = x.shape

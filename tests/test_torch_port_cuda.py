@@ -12,14 +12,19 @@ kernels round where the plain versions do, but a one-ulp difference in an
 early bf16 intermediate moves later ones by an ulp of theirs). Flash
 attention is held at the same two tolerances against max |plain| alone (its
 outputs are convex mixes of v, well under 1): in bf16 the kernel rounds p
-against the running max of each 64-key tile where the plain version rounds
-it against the row's max.
+against the running max of each 128-key tile where the plain version rounds
+it against the row's max. Gradients (float32, TF32 off): 1e-3 of max |plain
+grad| per input through one region, and of max |CPU grad| per parameter
+through the hidden-64 UNet (``chip_smoke.GRAD_TOL``); the regions' backward
+recomputes the plain version, so only the forward's sum order and cuDNN's
+backward algorithms differ.
 """
 
 import pytest
 import torch
 
-from chip_smoke import Regions, chain_inputs
+from chip_smoke import CONFIGS, GRAD_TOL, SERVE_LAUNCHES, Regions, backward_inputs, chain_inputs, grad_errors
+from chip_smoke import _counters, flash_inputs, switches, unet_grads
 
 pytestmark = pytest.mark.cuda
 
@@ -66,6 +71,59 @@ def test_kernel_matches_plain(kernels, region, dtype, tol, b, h, w):
         assert g.shape == wt.shape and g.dtype == wt.dtype
         assert g.is_contiguous(memory_format=torch.channels_last)
         assert _rel_err(g, wt) <= tol
+
+
+@pytest.mark.parametrize("region", ["stem", "chain", "tail", "stem_ds", "head", "conv3x3"])
+def test_kernel_backward_matches_plain(kernels, region):
+    """With grad on, the wrapper goes through ``Recompute``: one launch
+    forward, none backward, and the plain version's gradients. The backward
+    recomputes the plain version, so this checks the gradient plumbing (every
+    input, optional and tuple parts); the kernel's numbers are held by
+    ``test_kernel_matches_plain``, and a backward through kernel activations
+    by ``test_unet_backward_matches_cpu``."""
+    kern, plain = kernels[region]
+    b, h, w = 2, 26, 38
+    args = getattr(Regions(b, h, w, torch.float32, "cuda", seed=h + w + b), region)
+    g = torch.Generator().manual_seed(b)
+
+    def grads(fn, check_fn=False):
+        leaves = [a.detach().clone().requires_grad_() if isinstance(a, torch.Tensor) else a for a in args]
+        out = fn(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        if check_fn:
+            assert all(type(o.grad_fn).__name__ == "RecomputeBackward" for o in outs)
+        cots = [torch.randn(o.shape, generator=g).to(o.device, o.dtype) for o in outs]
+        return torch.autograd.grad(outs, [t for t in leaves if isinstance(t, torch.Tensor)], cots)
+
+    before = kern.launches
+    got = grads(kern, check_fn=True)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1  # the forward launched once, the backward nothing
+    g.manual_seed(b)
+    want = grads(plain)
+    for i, (gt, wt) in enumerate(zip(got, want)):
+        assert gt.shape == wt.shape and bool(torch.isfinite(gt).all()), i
+        assert (gt - wt).abs().max().item() <= GRAD_TOL * wt.abs().max().item(), i
+
+
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+def test_unet_backward_matches_cpu(kernels, cfg):
+    """The hidden-64 UNet forward through the kernels of each configuration
+    and backward on the card: every parameter gets a finite gradient that
+    matches the CPU's (plain versions) on the same weights and inputs."""
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.inference import SRDiffPipeline
+
+    hp = Hparams(compute_dtype="float32")
+    cpu = SRDiffPipeline(hp, device="cpu").model
+    gpu = SRDiffPipeline(hp, params=cpu.state_dict()).model.denoise_fn
+    x, t, cond, r = backward_inputs()
+    _, want, _ = unet_grads(cpu.denoise_fn, x, t, cond, r)
+    with switches(**CONFIGS[cfg]):
+        _, got, launched = unet_grads(gpu, x.cuda(), t.cuda(), cond.cuda(), r.cuda(), _counters())
+    assert launched == {k: v // 20 for k, v in SERVE_LAUNCHES[cfg].items()}
+    worst, bad = grad_errors(got, want)
+    assert not bad, (bad[:5], worst)
 
 
 @pytest.mark.parametrize("c", [32, 64])
@@ -196,12 +254,12 @@ def test_group_norm_refusals(group_norm):
         fgn(x[:, :, :, ::2], s, s)
 
 
-FLASH_SHAPES = [(2, 1024, 8, 128), (1, 1089, 2, 64), (1, 70, 3, 128), (2, 64, 1, 64)]  # (B, L, H, D)
-
-
-def _qkv(b, l, h, d, dtype, seed):
-    g = torch.Generator().manual_seed(seed)
-    return [torch.randn(b, l, h, d, generator=g).to("cuda", dtype) for _ in range(3)]
+# (B, Lq, Lk, H, D, logit scale): the SD shape, ragged L, a short tile, D = 64,
+# cross lengths both ways, and logits x8 (q scaled), which moves the running
+# max from tile to tile and exercises the rescale
+FLASH_SHAPES = [(2, 1024, 1024, 8, 128, 1), (1, 1089, 1089, 2, 64, 1), (1, 70, 70, 3, 128, 1),
+                (2, 64, 64, 1, 64, 1), (1, 100, 333, 2, 64, 1), (1, 333, 100, 2, 128, 1),
+                (2, 1024, 1024, 8, 128, 8), (1, 300, 300, 2, 64, 8)]
 
 
 @pytest.fixture
@@ -215,9 +273,9 @@ def flash():
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("b,l,h,d", FLASH_SHAPES)
-def test_flash_attention_matches_plain(flash, dtype, tol, b, l, h, d):
-    q, k, v = _qkv(b, l, h, d, dtype, seed=l + d)
+@pytest.mark.parametrize("b,l,lk,h,d,scale", FLASH_SHAPES)
+def test_flash_attention_matches_plain(flash, dtype, tol, b, l, lk, h, d, scale):
+    q, k, v = flash_inputs(b, l, h, d, dtype, seed=l + d, lk=lk, scale=scale)
     before = flash.flash_attention.launches
     got = flash.flash_attention(q, k, v)
     torch.cuda.synchronize()
@@ -229,14 +287,14 @@ def test_flash_attention_matches_plain(flash, dtype, tol, b, l, h, d):
 
 
 def test_flash_attention_cross_lengths_and_refusals(flash):
-    q = _qkv(1, 100, 2, 64, torch.float32, 1)[0]
-    k, v = _qkv(1, 333, 2, 64, torch.float32, 2)[1:]
+    q = flash_inputs(1, 100, 2, 64, torch.float32, 1)[0]
+    k, v = flash_inputs(1, 333, 2, 64, torch.float32, 2)[1:]
     got = flash.flash_attention(q, k, v)
     want = flash.flash_attention_reference(q, k, v)
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
     with pytest.raises(ValueError, match="D=96"):
-        flash.flash_attention(*_qkv(1, 64, 1, 96, torch.float32, 3))
+        flash.flash_attention(*flash_inputs(1, 64, 1, 96, torch.float32, 3))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        flash.flash_attention(*_qkv(1, 64, 1, 64, torch.float16, 4))
+        flash.flash_attention(*flash_inputs(1, 64, 1, 64, torch.float16, 4))
     with pytest.raises(ValueError, match="contiguous"):
         flash.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)

@@ -7,6 +7,11 @@ import torch
 from dgm_img_super_resolution_tpu.models.factory import build_srdiff, init_srdiff_params
 
 
+def hwio(w: np.ndarray) -> np.ndarray:
+    """A PyTorch (O, I, kh, kw) conv weight in JAX's HWIO layout."""
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+
+
 def random_jax_params(hp, seed):
     """A JAX SRDiff param tree for ``hp`` as nested dicts of numpy arrays:
     kernels N(0, 1/fan_in), biases N(0, 0.1) (the JAX init zeroes biases,
