@@ -13,7 +13,12 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    the three stage shapes of configuration C), and in float32 with TF32 off
    at edge shapes (the chain at C = 32 and 96-256 on a ragged 13x21); time
    both with CUDA events, and the one PyTorch call that computes the same
-   function where there is one.
+   function where there is one. conv3x3 in bf16 at C = 64 runs the
+   warpgroup-MMA kernel (``csrc/conv3x3_wgmma.cu``): its counter must count
+   every such call, a single non-zero tap at dx = 1 and 2 checks its shifted
+   operand descriptors, and it is also timed at zero border without Mish
+   (``ms_zero``, in turns with ``F.conv2d``, the same function) and at
+   configuration B's up-stage shape (8, 64, 256, 256).
 3. Serve the default full-width config (hidden 64, mults 1|2|3|4, RRDB nb 8,
    seeded random weights) with DDIM 20 steps, eta 1, bf16: batch 8 of
    128x128 uint8 -> (8, 512, 512, 3) uint8, under four configurations of
@@ -119,11 +124,12 @@ CONFIGS = {
 # C->C Block convs (3 in down stage 0, 3 in the last up stage, the final
 # Block) and no region; under C the stem, the tail and seven chains (down
 # stages 1-3, the mid pair, up stages 0-2). block_chain3_c<C> counts the
-# chain's launches at width C.
+# chain's launches at width C; conv3x3_wgmma counts conv3x3's launches of
+# the bf16 C = 64 kernel.
 SERVE_LAUNCHES = {
     "default": {"block_chain3_stem": 20, "block_chain3": 20, "block_chain3_c64": 20, "tail_fuse": 20},
     "A": {"block_chain3_stem_ds": 20, "block_chain3_head": 20, "tail_fuse": 20},
-    "B": {"conv3x3": 140},
+    "B": {"conv3x3": 140, "conv3x3_wgmma": 140},
     "C": {"block_chain3_stem": 20, "block_chain3": 140, "block_chain3_c64": 20, "block_chain3_c128": 40,
           "block_chain3_c192": 40, "block_chain3_c256": 40, "tail_fuse": 20},
 }
@@ -322,7 +328,8 @@ def phase_build(out_dir):
     for path in libs.values():
         log = Path(f"{path}.log")
         if log.exists():
-            report = [ln for ln in log.read_text().splitlines() if "registers" in ln or "spill" in ln]
+            report = [ln for ln in log.read_text().splitlines()
+                      if "registers" in ln or "spill" in ln or "Performance Loss" in ln]
             print("\n".join(f"  ptxas {path.name}: {ln.strip()}" for ln in report[:12]), flush=True)
             if out_dir:
                 shutil.copy(log, out_dir / log.name)
@@ -351,7 +358,7 @@ def _srdiff_kernels():
         "block_chain3_head": (bc.block_chain3_head, bc.block_chain3_head_plain, "head",
                               KERNEL_SRC + "block_chain.cu", TPU_SRC + "block_chain.py:1194"),
         "conv3x3": (k3.conv3x3, k3.conv3x3_plain, "conv3x3",
-                    KERNEL_SRC + "conv3x3.cu", TPU_SRC + "conv3x3.py:186"),
+                    KERNEL_SRC + "conv3x3_wgmma.cu", TPU_SRC + "conv3x3.py:186"),
     }
 
 
@@ -384,7 +391,6 @@ def _timed_row(name, kern, plain, args, work, source, replaces, failures, label,
 def phase_kernels():
     """Each SRDiff kernel against its plain version; returns the table rows."""
     import torch
-    import torch.nn.functional as F
 
     from dgm_img_super_resolution_tpu_torch.ops.kernels import block_chain as bc
     from dgm_img_super_resolution_tpu_torch.ops.kernels import conv3x3 as k3
@@ -417,19 +423,14 @@ def phase_kernels():
     # bf16 at the main path's shapes
     r = Regions(8, 512, 512, torch.bfloat16, "cuda", seed=1)
     for name, (kern, plain, attr, source, replaces) in fns.items():
-        args = getattr(r, attr)
-        library = None
-        if name == "conv3x3":
-            # the yardstick: cuDNN's zero-padded conv with bias, no Mish
-            x, wc, bc_ = args[:3]
-            w16, b16 = wc.to(x.dtype).contiguous(memory_format=torch.channels_last), bc_.to(x.dtype)
-            library = lambda: F.conv2d(x, w16, b16, padding=1)  # noqa: E731
-        # else the plain version is a composition of cuDNN calls and
-        # elementwise ops: no single PyTorch call computes the region
-        rows.append(_timed_row(name, kern, plain, args, getattr(r, f"{attr}_work"), source, replaces, failures,
-                               "main shape", library))
+        # the regions' plain versions are compositions of cuDNN calls and
+        # elementwise ops: no single PyTorch call computes one; conv3x3's
+        # yardstick is set by _conv3x3_extra
+        rows.append(_timed_row(name, kern, plain, getattr(r, attr), getattr(r, f"{attr}_work"), source, replaces,
+                               failures, "main shape"))
     del r
     torch.cuda.empty_cache()
+    _conv3x3_extra(next(row for row in rows if row["name"] == "conv3x3"), failures)
     # the wide chain at configuration C's stage shapes (row 2's wide mode)
     for b, c, h, w in WIDE_SHAPES:
         args, work = chain_inputs(b, c, h, w, torch.bfloat16, "cuda", seed=c)
@@ -441,17 +442,90 @@ def phase_kernels():
     return rows, failures
 
 
+def _conv3x3_inputs(b, h, w, seed):
+    """Random bf16 (x, w, b) of conv3x3 at C = 64, as ``Regions`` makes
+    them, and the call's FLOP and byte counts."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, 64, h, w, generator=g).to("cuda", torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wc = (torch.randn(64, 64, 3, 3, generator=g) / 24).cuda()
+    return x, wc, (torch.randn(64, generator=g) * 0.1).cuda(), (2.0 * b * h * w * 9 * 64 * 64,
+                                                                  2.0 * 2 * b * h * w * 64 + 4 * 9 * 64 * 64)
+
+
+def _conv3x3_extra(row, failures):
+    """The bf16 C = 64 conv3x3 kernel beyond its main-shape row: its counter
+    counts each such call and no other; a single non-zero tap at dx = 1 and
+    2 (the A operand's descriptor starts dx pixels into a 128-byte-swizzled
+    halo row) against the plain version; at the main shape its time at zero
+    border without Mish (``ms_zero``) in turns with ``F.conv2d``, which
+    computes that function (``library_ms``); and the row's numbers at
+    configuration B's up-stage shape (8, 64, 256, 256) under ``shapes``."""
+    import torch
+    import torch.nn.functional as F
+
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import conv3x3 as k3
+
+    x, wc, _, _ = _conv3x3_inputs(2, 34, 130, seed=7)
+    zero_b = torch.zeros(64, device="cuda")
+    for dx in (1, 2):
+        w1 = torch.zeros_like(wc)
+        w1[:, :, 1, dx] = wc[:, :, 1, dx] * 3
+        for border in ("zero", "reflect"):
+            _check(f"bf16 conv3x3 one tap (dy, dx) = (1, {dx}) {border} B=2 34x130", k3.conv3x3(x, w1, zero_b, border),
+                   k3.conv3x3_plain(x, w1, zero_b, border), BF16_TOL, failures)
+    before = k3.conv3x3.launches, k3.conv3x3.launches_wgmma
+    for t in (x, x.float(), x[:, :32].contiguous(memory_format=torch.channels_last)):
+        c = t.shape[1]
+        k3.conv3x3(t, wc[:c, :c], zero_b[:c], "reflect", True)
+    counted = k3.conv3x3.launches - before[0], k3.conv3x3.launches_wgmma - before[1]
+    print(f"conv3x3 counters over bf16 C=64, f32 C=64 and bf16 C=32 calls: launches +{counted[0]}, "
+          f"launches_wgmma +{counted[1]} {'ok' if counted == (3, 1) else 'FAIL'} (expected +3, +1)", flush=True)
+    if counted != (3, 1):
+        failures.append(f"conv3x3 counters {counted}")
+    span = lambda xs: f"{min(xs):.4f}-{max(xs):.4f}"  # noqa: E731
+    row["counter"], row["shapes"] = "conv3x3_wgmma", {}
+    for b, h, w in ((8, 512, 512), (8, 256, 256)):
+        x, wc, bc, (flops, nbytes) = _conv3x3_inputs(b, h, w, seed=h)
+        w16, b16 = wc.to(x.dtype).contiguous(memory_format=torch.channels_last), bc.to(x.dtype)
+        zero = lambda: k3.conv3x3(x, wc, bc, "zero", False)  # noqa: E731
+        err = _check(f"bf16 conv3x3 zero no Mish B={b} {h}x{w}", zero(), k3.conv3x3_plain(x, wc, bc, "zero", False),
+                     BF16_TOL, failures)
+        zs, ls = time_in_turns(zero, lambda: F.conv2d(x, w16, b16, padding=1), cuda_ms)
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16)
+        shape = {"max_abs_err_zero": err, "ms_zero": median(zs), "library_ms": median(ls), "ms_zero_rounds": zs,
+                 "library_ms_rounds": ls, "bound_ms": bound_ms, "bound_by": bound_by}
+        if (h, w) == (512, 512):
+            row.update(shape)
+        else:
+            served = lambda: k3.conv3x3(x, wc, bc, "reflect", True)  # noqa: E731
+            shape["max_abs_err"] = _check(f"bf16 conv3x3 reflect Mish B={b} {h}x{w}", served(),
+                                          k3.conv3x3_plain(x, wc, bc, "reflect", True), BF16_TOL, failures)
+            shape["ms"] = cuda_ms(served)
+            shape["plain_ms"] = cuda_ms(lambda: k3.conv3x3_plain(x, wc, bc, "reflect", True))
+            row["shapes"][str((b, 64, h, w))] = shape
+        print(f"bf16 conv3x3 B={b} {h}x{w}: zero border, no Mish {median(zs):.4f} ms ({span(zs)}), F.conv2d "
+              f"{median(ls):.4f} ms ({span(ls)}) in {FLASH_ROUNDS} rounds of {FLASH_CALLS} calls in turns; "
+              + (f"reflect + Mish {shape['ms']:.4f} ms, plain {shape['plain_ms']:.4f} ms; " if "ms" in shape else "")
+              + f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        del x
+    torch.cuda.empty_cache()
+
+
 def _reset_counts(counters):
     for fn in counters.values():
         fn.launches = 0
     counters["block_chain3"].launches_by_c.clear()
+    counters["conv3x3"].launches_wgmma = 0
 
 
 def _read_counts(counters) -> dict:
-    """The launches of every wrapper, and of block_chain3 at each width C as
-    block_chain3_c<C>."""
+    """The launches of every wrapper, of block_chain3 at each width C as
+    block_chain3_c<C>, and of conv3x3's bf16 C = 64 kernel as conv3x3_wgmma."""
     got = {name: fn.launches for name, fn in counters.items()}
     got.update({f"block_chain3_c{c}": n for c, n in sorted(counters["block_chain3"].launches_by_c.items())})
+    got["conv3x3_wgmma"] = counters["conv3x3"].launches_wgmma
     return got
 
 
@@ -496,7 +570,7 @@ def phase_pipeline(rows):
             failures.append(f"config {cfg}: pipeline output {tuple(out.shape)} {out.dtype} {out.device}")
         for row in rows:  # each row's count from the first configuration whose path runs it
             if row["launches"] is None and SERVE_LAUNCHES[cfg].get(row["name"]):
-                row["launches"] = launches.get(row["name"], 0)
+                row["launches"] = launches.get(row.get("counter", row["name"]), 0)
                 row["launches_config"] = cfg
         outs[cfg] = out
         res[cfg] = {"img_per_s": 8 / dt, "batch8_s": dt, "launches": launches,
@@ -607,6 +681,12 @@ GRAD_TOL = 1e-3  # card vs CPU float32 gradients, of max |CPU grad| per paramete
 BACKWARD_HR = 64  # HR side of the backward phase (down stages at 64, 32, 16, 8)
 
 
+def forward_launches(cfg) -> dict:
+    """The launches of one float32 UNet call under ``cfg``: its share of the
+    bf16 serve's (``SERVE_LAUNCHES`` / 20), less conv3x3's bf16-only kernel."""
+    return {k: v // 20 for k, v in SERVE_LAUNCHES[cfg].items() if k != "conv3x3_wgmma"}
+
+
 def unet_grads(unet, x, t, cond, r, counters=None):
     """With grad on, eps = unet(x, t, cond) and the gradient of sum(eps * r)
     with respect to every parameter; (eps, {name: grad}, the kernels'
@@ -655,7 +735,7 @@ def phase_backward():
     """The full-width (hidden 64) UNet forward and backward in float32 on
     the card under each configuration, against the CPU's gradients on the
     same weights and inputs. The forward's launch counts are one UNet call's
-    share of the serve's (``SERVE_LAUNCHES`` / 20), so the path went through
+    share of the serve's (``forward_launches``), so the path went through
     the kernels; the backward recomputes the plain versions and launches
     none."""
     import torch
@@ -680,7 +760,7 @@ def phase_backward():
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
         after = {k: v for k, v in _read_counts(counters).items() if v}
-        expect = {k: v // 20 for k, v in SERVE_LAUNCHES[cfg].items()}
+        expect = forward_launches(cfg)
         _, eps_rel = rel_err(eps.cpu(), eps_ref)
         worst, bad = grad_errors(got, want)
         ok = not bad and eps_rel <= F32_TOL and launched == expect and after == launched

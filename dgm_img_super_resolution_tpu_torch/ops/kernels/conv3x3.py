@@ -2,10 +2,13 @@
 JAX package's ``ops/pallas/conv3x3.py:conv3x3_rowpack``), the Block conv
 that ``DGMSR_PALLAS_CONV=1`` routes to it (``models/layers.py``).
 
-``conv3x3`` runs the plain PyTorch version on CPU tensors and the
-hand-written CUDA kernel of ``csrc/conv3x3.cu`` on CUDA tensors, for C in
-{32, 64}, float32 or bfloat16, ``border`` "zero" or "reflect". Tensors are
-NCHW-shaped; on the card ``x`` must be ``channels_last``.
+``conv3x3`` runs the plain PyTorch version on CPU tensors and a
+hand-written CUDA kernel on CUDA tensors, one launch a call, ``border``
+"zero" or "reflect": bfloat16 at C = 64 (the published width) on the
+warpgroup-MMA conv of ``csrc/conv3x3_wgmma.cu``, float32 and C = 32 on the
+tiled ``mma.sync`` conv of ``csrc/conv3x3.cu``. ``conv3x3.launches`` counts
+every launch, ``conv3x3.launches_wgmma`` those of the first kernel. Tensors
+are NCHW-shaped; on the card ``x`` must be ``channels_last``.
 """
 
 from __future__ import annotations
@@ -57,12 +60,16 @@ def _conv3x3_cuda(x, w, b, border, mish):
     K.check_param("b", b, (c,))
     out = torch.empty((n, c, h, wd), dtype=dt, device=x.device, memory_format=torch.channels_last)
     w_k, b_k = K.conv_taps(w, dt), K.f32(b, dt)
-    fn = function("conv3x3", "dgmsr_conv3x3", 4, 6)
+    wgmma = dt == torch.bfloat16 and c == 64
+    lib, name = ("conv3x3_wgmma", "dgmsr_conv3x3_wgmma") if wgmma else ("conv3x3", "dgmsr_conv3x3")
+    fn = function(lib, name, 4, 6)
     rc = fn(code, x.data_ptr(), w_k.data_ptr(), b_k.data_ptr(), out.data_ptr(), c, int(border == "reflect"),
             int(mish), n, h, wd, K.stream_ptr())
     K.raise_on_error(rc, "conv3x3")
     conv3x3.launches += 1
+    conv3x3.launches_wgmma += wgmma
     return out
 
 
 conv3x3.launches = 0
+conv3x3.launches_wgmma = 0

@@ -22,6 +22,9 @@
 // K and V from L2 (64 MB in all at that shape), and with 8 key tiles a block
 // the first S and the last P V do not overlap anything.
 //
+// The descriptor, wgmma fence / commit / wait, mbarrier, TMA and tensor-map
+// helpers are in hopper.cuh, shared with the conv of conv_wgmma.cuh.
+//
 // bfloat16 (the SD serve's path), on Hopper's warpgroup MMA and TMA. One
 // block of two warpgroups (256 threads) serves one (b.h) and 128 query rows,
 // 64 a warpgroup; the grid is (Lq / 128, B.H), 128 blocks at the SD shape,
@@ -67,6 +70,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -296,6 +301,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
 // ---------------------------------------------------------------- bfloat16
 namespace wg {
 
+using namespace dgmsr::hopper;
+
 constexpr int BQ = 128;      // query rows per block: two warpgroups of 64
 constexpr int BK = 128;      // keys per tile
 constexpr int NT = 2 * 128;  // threads per block
@@ -305,36 +312,6 @@ template <int D> struct Smem {
   static constexpr int KV = BK * D;  // elements of one K or V tile
   static constexpr size_t bytes = (size_t)(Q + 4 * KV) * sizeof(bf16) + 1024;  // + the 1024 B alignment
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// A wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (in 16-byte units), 128-byte swizzle (layout type 1, bits 62-63).
-// Adding n to it moves the start address by 16 n bytes.
-__device__ __forceinline__ uint64_t desc(const bf16* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_addr(p) >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving accesses to registers that an in-flight
-// wgmma reads or writes across its wait.
-template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[BK / 16][4]) {
-#pragma unroll
-  for (int i = 0; i < BK / 16; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
-}
 
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -459,43 +436,6 @@ __device__ __forceinline__ void pack_p(const float (&s)[BK / 2], uint32_t (&pa)[
 template <int D> __device__ __forceinline__ void rescale(float (&acc)[D / 2], const float (&alpha)[2]) {
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-// Waits for the phase of the given parity to complete (a fresh barrier
-// counts the phase before its first as complete, parity 1).
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-}
-// The same for a whole warp, which leaves it converged for the .aligned wgmma ops.
-__device__ __forceinline__ void mbar_wait_warp(uint64_t* bar, uint32_t parity) {
-  mbar_wait(bar, parity);
-  __syncwarp();
-}
-// One box of a 4-D tensor map (D, H, L, B) into shared memory, completing on bar.
-__device__ __forceinline__ void tma_load(const CUtensorMap* map, void* dst, uint64_t* bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], "
-      "[%6];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(bar))
-      : "memory");
 }
 
 template <int D>
@@ -624,24 +564,12 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 // A (B, L, H, D) bf16 tensor as a 4-D map whose box is rows x 64 columns of
 // one head, 128-byte swizzled: one column block of a tile as the descriptors
 // read it. Rows past L are filled with zeros.
 int make_map(CUtensorMap* map, const void* p, int B, int L, int H, int D, int rows) {
-  static EncodeTiled encode = nullptr;
-  if (!encode) {
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), cudaEnableDefault,
-                                &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess || !encode) {
-      encode = nullptr;
-      return (int)cudaErrorNotSupported;
-    }
-  }
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2, (cuuint64_t)L * H * D * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};

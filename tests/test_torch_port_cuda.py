@@ -23,7 +23,7 @@ backward algorithms differ.
 import pytest
 import torch
 
-from chip_smoke import CONFIGS, GRAD_TOL, SERVE_LAUNCHES, Regions, backward_inputs, chain_inputs, grad_errors
+from chip_smoke import CONFIGS, GRAD_TOL, Regions, backward_inputs, chain_inputs, forward_launches, grad_errors
 from chip_smoke import _counters, flash_inputs, switches, unet_grads
 
 pytestmark = pytest.mark.cuda
@@ -121,23 +121,36 @@ def test_unet_backward_matches_cpu(kernels, cfg):
     _, want, _ = unet_grads(cpu.denoise_fn, x, t, cond, r)
     with switches(**CONFIGS[cfg]):
         _, got, launched = unet_grads(gpu, x.cuda(), t.cuda(), cond.cuda(), r.cuda(), _counters())
-    assert launched == {k: v // 20 for k, v in SERVE_LAUNCHES[cfg].items()}
+    assert launched == forward_launches(cfg)
     worst, bad = grad_errors(got, want)
     assert not bad, (bad[:5], worst)
+
+
+# conv3x3 at C = 64 also on every edge of the bf16 kernel's 2-row x 64-pixel
+# tiles: W one pixel short of, at and past a tile (and two tiles), H at the
+# reflect minimum, odd and ragged, one image and three
+CONV64_EDGES = [(b, h, w) for b in (1, 3) for h in (2, 3, 17) for w in (3, 63, 64, 65, 130)]
 
 
 @pytest.mark.parametrize("c", [32, 64])
 @pytest.mark.parametrize("border", ["zero", "reflect"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 def test_conv3x3_widths_borders_and_odd_sizes(kernels, c, border, dtype, tol):
+    """bf16 at C = 64 runs the warpgroup-MMA kernel (``launches_wgmma``
+    counts it), the rest the tiled mma.sync kernel."""
     conv, plain = kernels["conv3x3"]
     g = torch.Generator().manual_seed(c)
-    for b, h, w in ((1, 2, 3), (2, 13, 21), (1, 33, 17)):
+    wgmma = int(dtype == torch.bfloat16 and c == 64)
+    for b, h, w in ((1, 2, 3), (2, 13, 21), (1, 33, 17)) + (tuple(CONV64_EDGES) if c == 64 else ()):
         x = torch.randn(b, c, h, w, generator=g).to("cuda", dtype).contiguous(memory_format=torch.channels_last)
         wc = (torch.randn(c, c, 3, 3, generator=g) / (3 * c**0.5)).cuda()
         bc = (torch.randn(c, generator=g) * 0.1).cuda()
         for act in (False, True):
-            assert _rel_err(conv(x, wc, bc, border, act), plain(x, wc, bc, border, act)) <= tol
+            before = conv.launches, conv.launches_wgmma
+            got = conv(x, wc, bc, border, act)
+            torch.cuda.synchronize()
+            assert (conv.launches, conv.launches_wgmma) == (before[0] + 1, before[1] + wgmma)
+            assert _rel_err(got, plain(x, wc, bc, border, act)) <= tol, (b, h, w, act)
 
 
 @pytest.mark.parametrize("c", [32, 96, 128, 192, 256])

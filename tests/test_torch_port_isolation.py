@@ -59,14 +59,33 @@ def test_package_imports_with_jax_blocked():
 def test_cpu_regions_leave_the_launch_counters_alone():
     from chip_smoke import Regions
     from dgm_img_super_resolution_tpu_torch.ops.kernels import block_chain as bc
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import conv3x3 as k3
     from dgm_img_super_resolution_tpu_torch.ops.kernels import tail_fuse as tf
 
-    fns = (bc.block_chain3_stem, bc.block_chain3, tf.tail_fuse)
-    before = [f.launches for f in fns]
-    r = Regions(1, 8, 8, torch.float32, "cpu")
-    for f, args in zip(fns, (r.stem, r.chain, r.tail)):
+    fns = (bc.block_chain3_stem, bc.block_chain3, tf.tail_fuse, k3.conv3x3)
+    before = [f.launches for f in fns] + [k3.conv3x3.launches_wgmma]
+    r = Regions(1, 8, 8, torch.bfloat16, "cpu")
+    for f, args in zip(fns, (r.stem, r.chain, r.tail, r.conv3x3)):
         assert torch.isfinite(f(*args)).all()
-    assert [f.launches for f in fns] == before
+    assert [f.launches for f in fns] + [k3.conv3x3.launches_wgmma] == before
+
+
+def test_every_cuda_source_is_built(tmp_path, monkeypatch):
+    """Each ``csrc/*.cu`` is one library of ``_build.SOURCES`` (and no name
+    there lacks its source), and an edit to a shared header such as
+    ``hopper.cuh`` renames, so rebuilds, every library."""
+    import shutil
+
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import _build
+
+    assert sorted(_build.SOURCES) == sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    for f in _build.CSRC.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {name: _build._target(name) for name in _build.SOURCES}
+    with open(tmp_path / "hopper.cuh", "a") as f:
+        f.write("\n")
+    assert all(_build._target(name) != before[name] for name in _build.SOURCES)
 
 
 def test_pipeline_needs_cuda_unless_asked_for_cpu(monkeypatch):

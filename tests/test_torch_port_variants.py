@@ -44,6 +44,7 @@ from dgm_img_super_resolution_tpu_torch.inference import SRDiffPipeline
 from dgm_img_super_resolution_tpu_torch.models import layers as L
 from dgm_img_super_resolution_tpu_torch.models import unet as unet_mod
 from dgm_img_super_resolution_tpu_torch.models.factory import build_srdiff
+from dgm_img_super_resolution_tpu_torch.ops.kernels import _common as K
 from dgm_img_super_resolution_tpu_torch.ops.kernels import block_chain as bc
 from dgm_img_super_resolution_tpu_torch.ops.kernels import conv3x3 as k3
 
@@ -170,7 +171,7 @@ def test_conv3x3_matches_jax_reflect_conv(c, h, w, act):
     np.testing.assert_allclose(_nhwc(got), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize("c", [8, 32])
+@pytest.mark.parametrize("c", [8, 32, 64])
 @pytest.mark.parametrize("border", ["zero", "reflect"])
 def test_conv3x3_matches_the_pallas_kernel(c, border):
     """Against ``conv3x3_rowpack`` in interpret mode, as the JAX package's
@@ -185,6 +186,52 @@ def test_conv3x3_matches_the_pallas_kernel(c, border):
                               block_rows=8, interpret=True)
         got = k3.conv3x3(_nchw(x), w, torch.from_numpy(b), border=border, mish=act)
         np.testing.assert_allclose(_nhwc(got), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,c,lib", [(torch.bfloat16, 64, "conv3x3_wgmma"), (torch.float32, 64, "conv3x3"),
+                                         (torch.bfloat16, 32, "conv3x3"), (torch.float32, 32, "conv3x3")])
+def test_conv3x3_sends_each_dtype_and_width_to_one_kernel(monkeypatch, dtype, c, lib):
+    """The device path on CPU tensors (``on_cpu`` answers False, a fake C
+    function stands in for the library): bf16 at C = 64 goes to the
+    warpgroup-MMA kernel and counts in ``launches_wgmma``, the rest to the
+    tiled kernel; one launch a call, with the same arguments."""
+    calls = []
+
+    def fake_function(lib_name, fn_name, n_ptrs, n_ints):
+        def fn(*args):
+            calls.append((lib_name, fn_name, args[0], args[5:11]))
+            return 0
+        return fn
+
+    monkeypatch.setattr(K, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(K, "stream_ptr", lambda: 0)
+    monkeypatch.setattr(k3, "function", fake_function)
+    x = torch.zeros(2, c, 3, 5, dtype=dtype).contiguous(memory_format=torch.channels_last)
+    before = k3.conv3x3.launches, k3.conv3x3.launches_wgmma
+    with torch.inference_mode():
+        out = k3.conv3x3(x, torch.zeros(c, c, 3, 3), torch.zeros(c), border="reflect", mish=True)
+    assert out.shape == x.shape and out.dtype == dtype and out.is_contiguous(memory_format=torch.channels_last)
+    assert calls == [(lib, f"dgmsr_{lib}", int(dtype == torch.bfloat16), (c, 1, 1, 2, 3, 5))]
+    wgmma = int(lib == "conv3x3_wgmma")
+    assert (k3.conv3x3.launches, k3.conv3x3.launches_wgmma) == (before[0] + 1, before[1] + wgmma)
+
+
+@pytest.mark.parametrize("failure", ["launch refused", "library missing"])
+def test_conv3x3_raises_rather_than_falling_back(monkeypatch, failure):
+    """A bf16 C = 64 call whose kernel cannot run raises: it never serves
+    through the tiled kernel or the plain version."""
+    def fake_function(lib_name, fn_name, n_ptrs, n_ints):
+        if failure == "library missing":
+            raise RuntimeError(f"nvcc {lib_name}.cu failed")
+        return lambda *args: 1  # cudaErrorInvalidValue at launch
+
+    monkeypatch.setattr(K, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(K, "stream_ptr", lambda: 0)
+    monkeypatch.setattr(k3, "function", fake_function)
+    monkeypatch.setattr(k3, "conv3x3_plain", lambda *a: pytest.fail("fell back to the plain version"))
+    x = torch.zeros(1, 64, 4, 4, dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode(), pytest.raises(RuntimeError, match="conv3x3|failed"):
+        k3.conv3x3(x, torch.zeros(64, 64, 3, 3), torch.zeros(64))
 
 
 def test_conv3x3_refuses_an_unknown_border():
