@@ -18,7 +18,12 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    every such call, a single non-zero tap at dx = 1 and 2 checks its shifted
    operand descriptors, and it is also timed at zero border without Mish
    (``ms_zero``, in turns with ``F.conv2d``, the same function) and at
-   configuration B's up-stage shape (8, 64, 256, 256).
+   configuration B's up-stage shape (8, 64, 256, 256). The chain regions'
+   bf16 C = 64 chain runs on the same conv core
+   (``csrc/block_chain_wgmma.cu``): each region is also held at every edge
+   of the core's tiles, and the route's two front pieces, the stem launch
+   writing h1 and the h1 pass, are checked and timed alone (``stem_ms``,
+   ``h1_ms``).
 3. Serve the default full-width config (hidden 64, mults 1|2|3|4, RRDB nb 8,
    seeded random weights) with DDIM 20 steps, eta 1, bf16: batch 8 of
    128x128 uint8 -> (8, 512, 512, 3) uint8, under four configurations of
@@ -124,15 +129,26 @@ CONFIGS = {
 # C->C Block convs (3 in down stage 0, 3 in the last up stage, the final
 # Block) and no region; under C the stem, the tail and seven chains (down
 # stages 1-3, the mid pair, up stages 0-2). block_chain3_c<C> counts the
-# chain's launches at width C; conv3x3_wgmma counts conv3x3's launches of
-# the bf16 C = 64 kernel.
+# chain's launches at width C; <wrapper>_wgmma counts a wrapper's calls on
+# the warpgroup-MMA conv core: conv3x3's bf16 C = 64 kernel, and the chain
+# regions whose bf16 C = 64 chain runs there (every stem, stem_ds and head
+# call, and block_chain3's at C = 64).
 SERVE_LAUNCHES = {
-    "default": {"block_chain3_stem": 20, "block_chain3": 20, "block_chain3_c64": 20, "tail_fuse": 20},
-    "A": {"block_chain3_stem_ds": 20, "block_chain3_head": 20, "tail_fuse": 20},
+    "default": {"block_chain3_stem": 20, "block_chain3_stem_wgmma": 20, "block_chain3": 20,
+                "block_chain3_wgmma": 20, "block_chain3_c64": 20, "tail_fuse": 20},
+    "A": {"block_chain3_stem_ds": 20, "block_chain3_stem_ds_wgmma": 20, "block_chain3_head": 20,
+          "block_chain3_head_wgmma": 20, "tail_fuse": 20},
     "B": {"conv3x3": 140, "conv3x3_wgmma": 140},
-    "C": {"block_chain3_stem": 20, "block_chain3": 140, "block_chain3_c64": 20, "block_chain3_c128": 40,
-          "block_chain3_c192": 40, "block_chain3_c256": 40, "tail_fuse": 20},
+    "C": {"block_chain3_stem": 20, "block_chain3_stem_wgmma": 20, "block_chain3": 140, "block_chain3_wgmma": 20,
+          "block_chain3_c64": 20, "block_chain3_c128": 40, "block_chain3_c192": 40, "block_chain3_c256": 40,
+          "tail_fuse": 20},
 }
+# The bf16 C = 64 kernels on the conv core (conv3x3 and the chain of rows 1,
+# 2, 4 and 5) also at every edge of its 2-row x 64-pixel tiles: W one pixel
+# short of, at and past a tile (and two tiles), H at the reflect minimum,
+# odd and ragged, one image and three.
+CONV64_EDGES = [(b, h, w) for b in (1, 3) for h in (2, 3, 17) for w in (3, 63, 64, 65, 130)]
+CORE_REGIONS = ("stem", "stem_ds", "chain", "chain_cond", "head")
 # The wide chain's shapes on C's path at batch 8, 512x512 HR (B, C, H, W):
 # down stage 1 (C = 128 also runs up stage 1 at 128x128), down stage 2 (and
 # up stage 0 at 64x64), down stage 3 and the mid pair.
@@ -319,6 +335,23 @@ def chain_inputs(b, c, h, w, dtype, device, seed=0, cond=False):
     return args, (2.0 * b * h * w * 27 * c * c, esize * b * h * w * (3 + cond) * c + 4 * 27 * c * c)
 
 
+def core_edge_args(region, b, h, w, device="cuda"):
+    """bf16 arguments of a chain region (``CORE_REGIONS``) whose chain runs
+    at (b, 64, h, w): the stem's and the chain's own shape (the chain with
+    and without its condition), the head's input at that shape, the
+    Downsample fold at the next even H and W (it halves them)."""
+    import torch
+
+    seed = h * w + b
+    if region.startswith("chain"):
+        return chain_inputs(b, 64, h, w, torch.bfloat16, device, seed=seed, cond=region == "chain_cond")[0]
+    if region == "head":  # Regions makes the head at half its HR shape
+        return Regions(b, 2 * h, 2 * w, torch.bfloat16, device, seed=seed).head
+    if region == "stem_ds":
+        h, w = h + h % 2, w + w % 2
+    return getattr(Regions(b, h, w, torch.bfloat16, device, seed=seed), region)
+
+
 def phase_build(out_dir):
     from dgm_img_super_resolution_tpu_torch.ops.kernels import _build
 
@@ -348,15 +381,15 @@ def _srdiff_kernels():
 
     return {
         "block_chain3_stem": (bc.block_chain3_stem, bc.block_chain3_stem_plain, "stem",
-                              KERNEL_SRC + "block_chain.cu", TPU_SRC + "block_chain.py:733"),
+                              KERNEL_SRC + "block_chain_wgmma.cu", TPU_SRC + "block_chain.py:733"),
         "block_chain3": (bc.block_chain3, bc.block_chain3_plain, "chain",
-                         KERNEL_SRC + "block_chain.cu", TPU_SRC + "block_chain.py:311"),
+                         KERNEL_SRC + "block_chain_wgmma.cu", TPU_SRC + "block_chain.py:311"),
         "tail_fuse": (tf.tail_fuse, tf.tail_fuse_plain, "tail",
                       KERNEL_SRC + "tail_fuse.cu", TPU_SRC + "tail_fuse.py:281"),
         "block_chain3_stem_ds": (bc.block_chain3_stem_ds, bc.block_chain3_stem_ds_plain, "stem_ds",
-                                 KERNEL_SRC + "block_chain.cu", TPU_SRC + "block_chain.py:733"),
+                                 KERNEL_SRC + "block_chain_wgmma.cu", TPU_SRC + "block_chain.py:733"),
         "block_chain3_head": (bc.block_chain3_head, bc.block_chain3_head_plain, "head",
-                              KERNEL_SRC + "block_chain.cu", TPU_SRC + "block_chain.py:1194"),
+                              KERNEL_SRC + "block_chain_wgmma.cu", TPU_SRC + "block_chain.py:1194"),
         "conv3x3": (k3.conv3x3, k3.conv3x3_plain, "conv3x3",
                     KERNEL_SRC + "conv3x3_wgmma.cu", TPU_SRC + "conv3x3.py:186"),
     }
@@ -428,8 +461,10 @@ def phase_kernels():
         # yardstick is set by _conv3x3_extra
         rows.append(_timed_row(name, kern, plain, getattr(r, attr), getattr(r, f"{attr}_work"), source, replaces,
                                failures, "main shape"))
+    _chain_pieces(r, {row["name"]: row for row in rows}, failures)
     del r
     torch.cuda.empty_cache()
+    _core_edges(failures)
     _conv3x3_extra(next(row for row in rows if row["name"] == "conv3x3"), failures)
     # the wide chain at configuration C's stage shapes (row 2's wide mode)
     for b, c, h, w in WIDE_SHAPES:
@@ -440,6 +475,70 @@ def phase_kernels():
         del args
     torch.cuda.empty_cache()
     return rows, failures
+
+
+def _chain_pieces(r, rows, failures):
+    """The front pieces of the chain's route onto the conv core, each
+    checked against its plain version and timed alone at the main path's
+    shapes: the stem launch writing (h1, r1) at (8, 3, 512, 512) (rows 1 and
+    4, ``stem_ms``) and the h1 pass over an a_pre made outside the chain at
+    (8, 64, 256, 256) (rows 2 and 5, ``h1_ms``). Both are bound by their
+    bytes."""
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import block_chain as bc
+
+    x, wa, ba, wr, br, tv1 = r.stem[:6]
+    b, _, h, w = x.shape
+    a_pre, _, tv1_c = r.chain[:3]
+    # operations: the stem's 30 multiply-adds an output channel, and about 8
+    # float32 operations an element for Mish and the time-vector add (the h1
+    # pass's only work); bytes: bf16 activations, float32 weights and tv1
+    pieces = {
+        "stem": (lambda: bc._launch_stem(x, wa, ba, wr, br, tv1), lambda: bc.stem_h1_plain(x, wa, ba, wr, br, tv1),
+                 tuple(x.shape), (2.0 * b * h * w * 30 * 64 + 8.0 * b * h * w * 64,
+                                  2 * b * h * w * (3 + 2 * 64) + 4 * (32 * 64 + b * 64)),
+                 ("block_chain3_stem", "block_chain3_stem_ds")),
+        "h1": (lambda: bc._launch_h1(a_pre, tv1_c), lambda: bc.h1_plain(a_pre, tv1_c), tuple(a_pre.shape),
+               (8.0 * a_pre.numel(), 2 * 2 * a_pre.numel() + 4 * tv1_c.numel()), ("block_chain3", "block_chain3_head")),
+    }
+    for piece, (kern, plain, shape, (flops, nbytes), names) in pieces.items():
+        err = _check(f"bf16 {piece + ' piece':20s} {shape}", kern(), plain(), BF16_TOL, failures)
+        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_F32)
+        print(f"bf16 {piece + ' piece':20s} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB", flush=True)
+        for name in names:
+            rows[name].update({f"{piece}_ms": ms, f"{piece}_plain_ms": plain_ms, f"{piece}_bound_ms": bound_ms,
+                               f"{piece}_max_abs_err": err})
+
+
+def _core_edges(failures):
+    """Each chain region in bf16 at every ``CONV64_EDGES`` shape against its
+    plain version; every call must run its chain on the conv core."""
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import block_chain as bc
+
+    fns = {"stem": (bc.block_chain3_stem, bc.block_chain3_stem_plain),
+           "stem_ds": (bc.block_chain3_stem_ds, bc.block_chain3_stem_ds_plain),
+           "chain": (bc.block_chain3, bc.block_chain3_plain), "chain_cond": (bc.block_chain3, bc.block_chain3_plain),
+           "head": (bc.block_chain3_head, bc.block_chain3_head_plain)}
+    worst, calls = {}, {}
+    for region in CORE_REGIONS:
+        kern, plain = fns[region]
+        before = kern.launches_wgmma
+        for b, h, w in CONV64_EDGES:
+            args = core_edge_args(region, b, h, w)
+            _, rel = rel_err(kern(*args), plain(*args))
+            worst[region] = max(worst.get(region, 0.0), rel)
+            if rel > BF16_TOL:
+                failures.append(f"bf16 {region} at the core's tile edge B={b} {h}x{w}: rel {rel:.3e}")
+        torch.cuda.synchronize()
+        calls[region] = kern.launches_wgmma - before
+        if calls[region] != len(CONV64_EDGES):
+            failures.append(f"bf16 {region} at the tile edges: {calls[region]} calls on the conv core")
+    print(f"bf16 chain regions at the conv core's {len(CONV64_EDGES)} tile-edge shapes: worst rel err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (tol {BF16_TOL}); calls on the core {calls}", flush=True)
 
 
 def _conv3x3_inputs(b, h, w, seed):
@@ -516,16 +615,18 @@ def _conv3x3_extra(row, failures):
 def _reset_counts(counters):
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "launches_wgmma"):
+            fn.launches_wgmma = 0
     counters["block_chain3"].launches_by_c.clear()
-    counters["conv3x3"].launches_wgmma = 0
 
 
 def _read_counts(counters) -> dict:
     """The launches of every wrapper, of block_chain3 at each width C as
-    block_chain3_c<C>, and of conv3x3's bf16 C = 64 kernel as conv3x3_wgmma."""
+    block_chain3_c<C>, and a wrapper's calls on the conv core as
+    <wrapper>_wgmma."""
     got = {name: fn.launches for name, fn in counters.items()}
     got.update({f"block_chain3_c{c}": n for c, n in sorted(counters["block_chain3"].launches_by_c.items())})
-    got["conv3x3_wgmma"] = counters["conv3x3"].launches_wgmma
+    got.update({f"{name}_wgmma": fn.launches_wgmma for name, fn in counters.items() if hasattr(fn, "launches_wgmma")})
     return got
 
 
@@ -572,6 +673,8 @@ def phase_pipeline(rows):
             if row["launches"] is None and SERVE_LAUNCHES[cfg].get(row["name"]):
                 row["launches"] = launches.get(row.get("counter", row["name"]), 0)
                 row["launches_config"] = cfg
+                if f"{row['name']}_wgmma" in SERVE_LAUNCHES[cfg]:
+                    row["launches_wgmma"] = launches.get(f"{row['name']}_wgmma", 0)
         outs[cfg] = out
         res[cfg] = {"img_per_s": 8 / dt, "batch8_s": dt, "launches": launches,
                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -683,8 +786,9 @@ BACKWARD_HR = 64  # HR side of the backward phase (down stages at 64, 32, 16, 8)
 
 def forward_launches(cfg) -> dict:
     """The launches of one float32 UNet call under ``cfg``: its share of the
-    bf16 serve's (``SERVE_LAUNCHES`` / 20), less conv3x3's bf16-only kernel."""
-    return {k: v // 20 for k, v in SERVE_LAUNCHES[cfg].items() if k != "conv3x3_wgmma"}
+    bf16 serve's (``SERVE_LAUNCHES`` / 20), less the calls on the bf16-only
+    conv core."""
+    return {k: v // 20 for k, v in SERVE_LAUNCHES[cfg].items() if not k.endswith("_wgmma")}
 
 
 def unet_grads(unet, x, t, cond, r, counters=None):

@@ -8,11 +8,16 @@ the three chained reflect 3x3 C->C convs, plus the RRDB condition);
 pair of a width in the chain set, and ``block_chain3_head`` the same with
 the stage's head conv over ``[x || skip]`` and its 1x1 residual conv in
 front. Each has a plain PyTorch version (the CPU path, and the yardstick the
-card is held against) and hand-written CUDA kernels for CUDA tensors:
-``csrc/block_chain.cu`` (C = 64, and the chain alone at C = 32) and, for the
-chain at 96 to 512 channels, ``csrc/chain_wide.cu``. Tensors are
-NCHW-shaped; on the card activations must be ``channels_last`` so that the
-kernels see NHWC memory.
+card is held against) and hand-written CUDA kernels for CUDA tensors. The
+chain runs in bfloat16 at C = 64 on the warpgroup-MMA conv core
+(``csrc/block_chain_wgmma.cu``: the stem writing h1, or an h1 pass over an
+a_pre made outside, then three conv launches), in float32 and at C = 32 on
+``csrc/block_chain.cu``'s tiled conv, and at 96 to 512 channels on
+``csrc/chain_wide.cu``; the Downsample and head convs stay on
+``block_chain.cu`` in every dtype. Each wrapper's ``launches`` counts its
+calls on the card, ``launches_wgmma`` those whose chain ran on the core.
+Tensors are NCHW-shaped; on the card activations must be ``channels_last``
+so that the kernels see NHWC memory.
 """
 
 from __future__ import annotations
@@ -30,11 +35,16 @@ def _vec(v: torch.Tensor) -> torch.Tensor:
     return v[:, :, None, None]
 
 
-def block_chain3_plain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond=None):
-    """Plain composition (``block_chain3_reference``): rounds h1, y1, h2 and
-    out to the activation dtype where the reference does."""
-    dt = a_pre.dtype
-    h1 = (mish(a_pre.float()) + _vec(tv1).float()).to(dt)
+def h1_plain(a_pre, tv1):
+    """h1 = mish(a_pre) + tv1, rounded to the activation dtype: the chain's
+    input (the stem launch writes it; the h1 pass of the core's route)."""
+    return (mish(a_pre.float()) + _vec(tv1).float()).to(a_pre.dtype)
+
+
+def chain_from_h1_plain(h1, r1, tv2, wb, bb, wc, bc, wd, bd, cond=None):
+    """The chain's three convs from h1 on, rounding y1, h2 and out to the
+    activation dtype where the reference does (the core's three launches)."""
+    dt = h1.dtype
     y1 = mish(reflect_conv3x3(h1, wb, bb).float()).to(dt) + r1
     h2 = (mish(reflect_conv3x3(y1, wc, bc).float()) + _vec(tv2).float()).to(dt)
     out = mish(reflect_conv3x3(h2, wd, bd).float()).to(dt) + y1
@@ -43,11 +53,27 @@ def block_chain3_plain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond=None):
     return out
 
 
+def stem_plain(x, wa, ba, wr, br):
+    """Down stage 0's stem: a_pre = reflect 3x3 conv (3->C), r1 = 1x1
+    residual conv (3->C), each rounded once."""
+    return reflect_conv3x3(x, wa, ba), F.conv2d(x, wr.to(x.dtype), br.to(x.dtype))
+
+
+def stem_h1_plain(x, wa, ba, wr, br, tv1):
+    """(h1, r1) of the stem: what the stem launch writes on the core's route."""
+    a_pre, r1 = stem_plain(x, wa, ba, wr, br)
+    return h1_plain(a_pre, tv1), r1
+
+
+def block_chain3_plain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond=None):
+    """Plain composition (``block_chain3_reference``): h1, then the chain."""
+    return chain_from_h1_plain(h1_plain(a_pre, tv1), r1, tv2, wb, bb, wc, bc, wd, bd, cond)
+
+
 def block_chain3_stem_plain(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond=None):
-    """Plain composition (``block_chain3_stem_reference``): a_pre = reflect
-    3x3 stem conv (3->C), r1 = 1x1 residual conv (3->C), then the chain."""
-    a_pre = reflect_conv3x3(x, wa, ba)
-    r1 = F.conv2d(x, wr.to(x.dtype), br.to(x.dtype))
+    """Plain composition (``block_chain3_stem_reference``): the stem's a_pre
+    and r1, then the chain."""
+    a_pre, r1 = stem_plain(x, wa, ba, wr, br)
     return block_chain3_plain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
 
 
@@ -71,6 +97,12 @@ def block_chain3_head_plain(x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, w
 
 
 RESIDENT_WIDTHS = (32, 64)  # chain widths whose weights stay in shared memory (block_chain.cu)
+
+
+def _on_core(t: torch.Tensor) -> bool:
+    """Whether the chain over activations like ``t`` runs on the
+    warpgroup-MMA conv core (``csrc/block_chain_wgmma.cu``): bf16 at C = 64."""
+    return t.dtype == torch.bfloat16 and t.shape[1] == K.C
 
 
 def stream_taps(w: torch.Tensor, dtype: torch.dtype, ks: int = 64) -> torch.Tensor:
@@ -99,9 +131,10 @@ def _check_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
 
 
 def _launch_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
-    """Three conv launches: of the resident-weight kernel at C in
-    ``RESIDENT_WIDTHS``, of the wide kernel (weights streamed over K in
-    32-channel slices, 64 or 32 output channels a block) above."""
+    """Three tiled-conv launches, conv_b building h1 in its input prologue:
+    of the resident-weight kernel at C in ``RESIDENT_WIDTHS``, of the wide
+    kernel (weights streamed over K in 32-channel slices, 64 or 32 output
+    channels a block) above."""
     b, c, h, w = a_pre.shape
     dt = a_pre.dtype
     y1 = torch.empty_like(a_pre)
@@ -121,6 +154,43 @@ def _launch_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
     return out
 
 
+def _launch_h1(a_pre, tv1):
+    """The h1 pass of the core's route, where a_pre comes from outside."""
+    b, _, h, w = a_pre.shape
+    h1 = torch.empty_like(a_pre)
+    tv1_k = K.f32(tv1, a_pre.dtype)
+    fn = function("block_chain_wgmma", "dgmsr_h1", 3, 3)
+    rc = fn(K.dtype_code(a_pre), a_pre.data_ptr(), tv1_k.data_ptr(), h1.data_ptr(), b, h, w, K.stream_ptr())
+    K.raise_on_error(rc, "block_chain3 (h1 pass)")
+    return h1
+
+
+def _launch_chain_core(h1, r1, tv2, wb, bb, wc, bc, wd, bd, cond):
+    """conv_b, conv_c and conv_d on the conv core. h1 is the wrapper's own
+    scratch: conv_c writes h2 over it."""
+    b, c, h, w = h1.shape
+    dt = h1.dtype
+    y1 = torch.empty_like(h1)
+    out = torch.empty_like(h1)
+    args = [K.f32(tv2, dt), K.conv_taps(wb, dt), K.f32(bb, dt), K.conv_taps(wc, dt), K.f32(bc, dt),
+            K.conv_taps(wd, dt), K.f32(bd, dt)]
+    fn = function("block_chain_wgmma", "dgmsr_chain3_wgmma", 13, 4)
+    rc = fn(K.dtype_code(h1), h1.data_ptr(), r1.data_ptr(), *(t.data_ptr() for t in args),
+            cond.data_ptr() if cond is not None else None, y1.data_ptr(), h1.data_ptr(), out.data_ptr(),
+            c, b, h, w, K.stream_ptr())
+    K.raise_on_error(rc, "block_chain3 (conv core)")
+    return out
+
+
+def _chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
+    """The chain over an a_pre made outside it; (out, whether it ran on the
+    conv core)."""
+    _check_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
+    if _on_core(a_pre):
+        return _launch_chain_core(_launch_h1(a_pre, tv1), r1, tv2, wb, bb, wc, bc, wd, bd, cond), True
+    return _launch_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond), False
+
+
 def block_chain3(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond=None):
     """The chain from h1 on (see :func:`block_chain3_plain`). ``a_pre``,
     ``r1``, ``cond``: (B,C,H,W) activations; ``tv1``/``tv2``: (B,C) time
@@ -128,7 +198,8 @@ def block_chain3(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond=None):
     from 32 to 512. CPU tensors run the plain version; CUDA tensors launch
     the kernel (3 conv launches), differentiable through the plain version
     (``_autograd.region``). ``launches`` counts every width,
-    ``launches_by_c`` each."""
+    ``launches_by_c`` each, ``launches_wgmma`` the calls on the conv core
+    (bf16 at C = 64: an h1 pass and 3 conv launches)."""
     args = (a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
     if K.on_cpu(*args):
         return block_chain3_plain(*args)
@@ -136,20 +207,22 @@ def block_chain3(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond=None):
 
 
 def _block_chain3_cuda(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
-    _check_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
-    out = _launch_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
+    out, core = _chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
     c = a_pre.shape[1]
     block_chain3.launches += 1
+    block_chain3.launches_wgmma += core
     block_chain3.launches_by_c[c] = block_chain3.launches_by_c.get(c, 0) + 1
     return out
 
 
 block_chain3.launches = 0
+block_chain3.launches_wgmma = 0
 block_chain3.launches_by_c = {}
 
 
-def _launch_stem(x, wa, ba, wr, br):
-    """The stem launch: (a_pre, r1) of down stage 0's first ResnetBlock."""
+def _launch_stem(x, wa, ba, wr, br, tv1=None):
+    """The stem launch of down stage 0's first ResnetBlock: (h1, r1) in
+    bf16, on the core's route (``tv1`` given), else (a_pre, r1)."""
     dt = x.dtype
     code = K.dtype_code(x)
     b, cin, h, w = x.shape
@@ -160,25 +233,40 @@ def _launch_stem(x, wa, ba, wr, br):
     K.check_param("wr", wr, (c, 3, 1, 1))
     for name, t in (("ba", ba), ("br", br)):
         K.check_param(name, t, (c,))
-    a_pre = torch.empty((b, c, h, w), dtype=dt, device=x.device, memory_format=torch.channels_last)
-    r1 = torch.empty_like(a_pre)
+    first = torch.empty((b, c, h, w), dtype=dt, device=x.device, memory_format=torch.channels_last)
+    r1 = torch.empty_like(first)
     # weights rounded to the activation dtype, as the plain version's conv sees them
     wa_k = K.f32(wa.permute(2, 3, 1, 0).reshape(27, c), dt)
     wr_k = K.f32(wr[:, :, 0, 0].t(), dt)
-    ba_k, br_k = K.f32(ba, dt), K.f32(br, dt)
-    fn = function("block_chain", "dgmsr_stem_head", 7, 3)
-    rc = fn(code, x.data_ptr(), wa_k.data_ptr(), ba_k.data_ptr(), wr_k.data_ptr(), br_k.data_ptr(),
-            a_pre.data_ptr(), r1.data_ptr(), b, h, w, K.stream_ptr())
+    ptrs = [x, wa_k, K.f32(ba, dt), wr_k, K.f32(br, dt)]
+    if tv1 is not None:
+        K.check_param("tv1", tv1, (b, c))
+        fn = function("block_chain_wgmma", "dgmsr_stem_h1", 8, 3)
+        ptrs.append(K.f32(tv1, dt))
+    else:
+        fn = function("block_chain", "dgmsr_stem_head", 7, 3)
+    rc = fn(code, *(t.data_ptr() for t in ptrs), first.data_ptr(), r1.data_ptr(), b, h, w, K.stream_ptr())
     K.raise_on_error(rc, "block_chain3_stem (stem)")
-    return a_pre, r1
+    return first, r1
+
+
+def _stem_chain(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
+    """The stem launch, then the chain; (out, whether it ran on the conv
+    core). bf16 takes the core's route (the stem is C = 64 only)."""
+    if x.dtype == torch.bfloat16:
+        h1, r1 = _launch_stem(x, wa, ba, wr, br, tv1)
+        _check_chain(h1, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
+        return _launch_chain_core(h1, r1, tv2, wb, bb, wc, bc, wd, bd, cond), True
+    a_pre, r1 = _launch_stem(x, wa, ba, wr, br)
+    return _chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
 
 
 def block_chain3_stem(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond=None):
     """Down stage 0 (see :func:`block_chain3_stem_plain`). ``x``: (B,3,H,W)
     noisy residual in the activation dtype; ``wa``/``ba``: (C,3,3,3)/(C,)
     stem conv; ``wr``/``br``: (C,3,1,1)/(C,) residual conv; the rest as
-    :func:`block_chain3`. CUDA tensors launch the kernel (a stem launch and
-    3 tiled-conv launches)."""
+    :func:`block_chain3`. CUDA tensors launch the kernel: a stem launch and 3
+    conv launches (bf16 on the conv core: the stem writes h1)."""
     args = (x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
     if K.on_cpu(*args):
         return block_chain3_stem_plain(*args)
@@ -186,14 +274,14 @@ def block_chain3_stem(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond=
 
 
 def _block_chain3_stem_cuda(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
-    a_pre, r1 = _launch_stem(x, wa, ba, wr, br)
-    _check_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
-    out = _launch_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
+    out, core = _stem_chain(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
     block_chain3_stem.launches += 1
+    block_chain3_stem.launches_wgmma += core
     return out
 
 
 block_chain3_stem.launches = 0
+block_chain3_stem.launches_wgmma = 0
 
 
 def block_chain3_stem_ds(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond, wds, bds):
@@ -202,7 +290,7 @@ def block_chain3_stem_ds(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, co
     :func:`block_chain3_stem`, then ``wds``/``bds``, the (C,C,3,3)/(C,)
     stride-2 conv. Returns ``(out, ds_out)``; H and W must be even. CUDA
     tensors launch the kernel (the stem's 4 launches and a stride-2 conv
-    launch)."""
+    launch on ``block_chain.cu``)."""
     args = (x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond, wds, bds)
     if K.on_cpu(*args):
         return block_chain3_stem_ds_plain(*args)
@@ -216,9 +304,7 @@ def _block_chain3_stem_ds_cuda(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, 
     c = wa.shape[0]
     K.check_param("wds", wds, (c, c, 3, 3))
     K.check_param("bds", bds, (c,))
-    a_pre, r1 = _launch_stem(x, wa, ba, wr, br)
-    _check_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
-    out = _launch_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
+    out, core = _stem_chain(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
     dt = x.dtype
     ds = torch.empty((b, c, h // 2, w // 2), dtype=dt, device=x.device, memory_format=torch.channels_last)
     wds_k, bds_k = stream_taps(wds, dt), K.f32(bds, dt)
@@ -227,10 +313,12 @@ def _block_chain3_stem_ds_cuda(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, 
             K.stream_ptr())
     K.raise_on_error(rc, "block_chain3_stem_ds (Downsample)")
     block_chain3_stem_ds.launches += 1
+    block_chain3_stem_ds.launches_wgmma += core
     return out, ds
 
 
 block_chain3_stem_ds.launches = 0
+block_chain3_stem_ds.launches_wgmma = 0
 
 
 def block_chain3_head(x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd):
@@ -239,8 +327,8 @@ def block_chain3_head(x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd)
     upsampled activation and the down path's skip; ``wa``/``ba``:
     (C,2C_s,3,3)/(C,) head conv; ``wr``/``br``: (C,2C_s,1,1)/(C,) residual
     conv; the rest as :func:`block_chain3`. CUDA tensors launch the kernel
-    (two head launches, then 3 tiled-conv launches); C_s must be a multiple
-    of 64."""
+    (two head launches, then the chain as :func:`block_chain3` launches it);
+    C_s must be a multiple of 64."""
     args = (x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd)
     if K.on_cpu(*args):
         return block_chain3_head_plain(*args)
@@ -268,10 +356,11 @@ def _block_chain3_head_cuda(x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, w
     rc = fn(code, x.data_ptr(), skip.data_ptr(), *(t.data_ptr() for t in args), a_pre.data_ptr(), r1.data_ptr(),
             cs, b, h, w, K.stream_ptr())
     K.raise_on_error(rc, "block_chain3_head (head)")
-    _check_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, None)
-    out = _launch_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, None)
+    out, core = _chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, None)
     block_chain3_head.launches += 1
+    block_chain3_head.launches_wgmma += core
     return out
 
 
 block_chain3_head.launches = 0
+block_chain3_head.launches_wgmma = 0

@@ -19,17 +19,15 @@
 //   a_pre  = rnd(rnd(conv_a(x, wa[:, :Cs]) + ba) + rnd(conv_a(skip, wa[:, Cs:])))
 //   r1     = rnd(rnd(rnd(x . wr[:, :Cs]) + rnd(skip . wr[:, Cs:])) + br)
 // for the Downsample fold and the head.
+// Here in float32, and the chain at C = 32 in bf16: in bf16 at C = 64 the stem
+// and the chain run on the warpgroup-MMA conv core (block_chain_wgmma.cu),
+// and the Downsample and head convs below serve both dtypes.
 //
-// Bound on the card: at B=8, 512x512, C=64 in bf16 the stem region is 472
-// GFLOP against about 549 MB of unavoidable traffic, so the tensor cores
-// bound it (0.48 ms at 989 TFLOP/s); the 256x256 up-stage chain likewise
-// (116 GFLOP). Design: a region is a few launches of one tiled conv kernel
-// (conv_tile.cuh: mma.sync bf16 tensor-core implicit GEMM, weights resident
-// in shared memory, persistent tiles, the elementwise chain fused into the
-// input prologue and output epilogues). The intermediates a_pre, r1, y1 and
-// h2 go through device memory: 11 activation passes for the stem region
-// where a fused one needs 2, and 8 where 3 for the up-stage chain, which a
-// later single-launch version removes.
+// Design: a region is a few launches of one tiled conv kernel (conv_tile.cuh:
+// mma.sync bf16 tensor-core implicit GEMM or f32 FMAs, weights resident in
+// shared memory, persistent tiles, the elementwise chain fused into the input
+// prologue and output epilogues). The intermediates a_pre, r1, y1 and h2 go
+// through device memory.
 //
 // The Downsample fold and the head add one or two launches of a second conv,
 // conv_stream_kernel, in front of or behind the chain. Its weights cannot stay
@@ -306,36 +304,33 @@ int head(const void* x, const void* skip, const void* wa, const float* ba, const
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; c: 64 or 32 channels. Activations are
-// NHWC and contiguous; conv weights are (9, C_out, C_in) in the activation
-// dtype; biases and time vectors are float32. y1 and h2 are scratch of the
-// activations' shape. Returns cudaGetLastError() after the last launch (0 on
-// success).
+// dtype: 0 = float32, 1 = bfloat16; c: 64 or 32 channels (bfloat16: 32 only;
+// block_chain_wgmma.cu runs it at 64). Activations are NHWC and contiguous;
+// conv weights are (9, C_out, C_in) in the activation dtype; biases and time
+// vectors are float32. y1 and h2 are scratch of the activations' shape.
+// Returns cudaGetLastError() after the last launch (0 on success).
 int dgmsr_block_chain3(int dtype, const void* a_pre, const void* r1, const void* tv1, const void* tv2, const void* wb,
                        const void* bb, const void* wc, const void* bc, const void* wd, const void* bd,
                        const void* cond, void* y1, void* h2, void* out, int c, int B, int H, int W, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  if (c != C && c != 32) return (int)cudaErrorInvalidValue;
-  decltype(&chain3<float, C>) fn = dtype == 1 ? (c == C ? &chain3<bf16, C> : &chain3<bf16, 32>)
-                                              : (c == C ? &chain3<float, C> : &chain3<float, 32>);
+  if ((c != C && c != 32) || (dtype == 1 && c != 32)) return (int)cudaErrorInvalidValue;
+  decltype(&chain3<float, C>) fn = dtype == 1 ? &chain3<bf16, 32> : c == C ? &chain3<float, C> : &chain3<float, 32>;
   return fn(a_pre, r1, f(tv1), f(tv2), wb, f(bb), wc, f(bc), wd, f(bd), cond, y1, h2, out, B, H, W, s);
 }
 
-// x is (B, H, W, 3); wa is (27, C) float32 ordered (dy, dx, c_in); wr is
-// (3, C) float32; a_pre and r1 are written as (B, H, W, C).
+// dtype must be 0 (float32; block_chain_wgmma.cu runs the bfloat16 stem). x is
+// (B, H, W, 3); wa is (27, C) float32 ordered (dy, dx, c_in); wr is (3, C)
+// float32; a_pre and r1 are written as (B, H, W, C).
 int dgmsr_stem_head(int dtype, const void* x, const void* wa, const void* ba, const void* wr, const void* br,
                     void* a_pre, void* r1, int B, int H, int W, void* stream) {
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const long npix = (long)B * H * W;
   const unsigned grid = (unsigned)((npix + STEM_PIX - 1) / STEM_PIX);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  if (dtype == 1)
-    stem_kernel<bf16><<<grid, STEM_PIX * 8, 0, s>>>(static_cast<const bf16*>(x), f(wa), f(ba), f(wr), f(br),
-                                                    static_cast<bf16*>(a_pre), static_cast<bf16*>(r1), B, H, W);
-  else
-    stem_kernel<float><<<grid, STEM_PIX * 8, 0, s>>>(static_cast<const float*>(x), f(wa), f(ba), f(wr), f(br),
-                                                     static_cast<float*>(a_pre), static_cast<float*>(r1), B, H, W);
+  stem_kernel<float><<<grid, STEM_PIX * 8, 0, s>>>(static_cast<const float*>(x), f(wa), f(ba), f(wr), f(br),
+                                                   static_cast<float*>(a_pre), static_cast<float*>(r1), B, H, W);
   return (int)cudaGetLastError();
 }
 

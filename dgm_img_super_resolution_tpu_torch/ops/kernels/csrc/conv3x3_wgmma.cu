@@ -26,41 +26,19 @@ using namespace dgmsr::cw;
 
 namespace {
 
-__device__ __forceinline__ float rnd(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-
-// mish(x) = x * tanh(softplus(x)) = x * n(n + 2) / (n(n + 2) + 2), n = e^x,
-// without a branch (one per element slowed the epilogue on the card): past
-// x = 20 the quotient is 1 in f32 (as tanh(softplus) is), and n = e^20 keeps
-// n(n + 2) inside __fdividef's range. The fast exp and division are within a
-// few f32 ulp, far below the bf16 rounding that follows.
-__device__ __forceinline__ float mish(float x) {
-  const float n = __expf(fminf(x, 20.f));
-  const float p = n * (n + 2.f);
-  return x * __fdividef(p, p + 2.f);
-}
-
 template <bool MISH> struct BiasAct {
+  static constexpr int NRES = 0;
   const float* bias;  // (C,) float32
-  struct Regs {
-    float b[16];  // channels 8 n + 2 t, + 1 at b[2 n], b[2 n + 1]
-  };
-  __device__ __forceinline__ Regs setup(int t) const {
-    Regs r;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      r.b[2 * n] = bias[8 * n + 2 * t];
-      r.b[2 * n + 1] = bias[8 * n + 2 * t + 1];
-    }
-    return r;
-  }
-  __device__ __forceinline__ uint32_t operator()(const Regs& r, int n, int, int, int, float s0, float s1) const {
+  using Regs = BiasRegs;
+  __device__ __forceinline__ Regs setup(int t) const { return bias_regs(bias, t); }
+  __device__ __forceinline__ uint32_t operator()(const Regs& r, int n, int, int, int, float s0, float s1, uint32_t,
+                                                 uint32_t) const {
     float v0 = rnd(s0 + r.b[2 * n]), v1 = rnd(s1 + r.b[2 * n + 1]);
     if (MISH) {
       v0 = mish(v0);
       v1 = mish(v1);
     }
-    __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
-    return *reinterpret_cast<uint32_t*>(&v);
+    return pack(v0, v1);
   }
 };
 

@@ -1,7 +1,7 @@
 // A 3x3 conv C -> C (C = 64, bf16, NHWC, stride 1) on Hopper's warpgroup MMA
-// fed by TMA, with an epilogue hook: the conv core of conv3x3_wgmma.cu, built
-// so that the regions of block_chain.cu and tail_fuse.cu can move onto it one
-// epilogue at a time.
+// fed by TMA, with an epilogue hook: the conv core of conv3x3_wgmma.cu and of
+// the bf16 C = 64 chain of block_chain_wgmma.cu, built so that the regions
+// can move onto it one epilogue at a time.
 //
 // Design (sm_90a; every size below at C = 64, where one pixel's channels are
 // exactly one 128-byte swizzle row):
@@ -48,8 +48,19 @@
 //   warpgroup; conflict-free), then one TMA store of 64 pixels x 128 B,
 //   which clips the pixels and rows outside the image (ragged W and H).
 //   The store's read of the staging row overlaps the next tile's MMAs.
+// - Residuals: a hook may add one or two tensors of the output's shape at
+//   the output pixel (Epi::NRES). They come in by TMA loads of the output
+//   store's box: the first into the staging row itself, the second into a
+//   row of its own, both swizzled as the store reads them, so the hook reads
+//   each thread's pair where it then writes its result. The warpgroup's
+//   leader issues tile j + 1's loads once tile j's store has read the
+//   staging row. On the card that wait, more than the loads, is what a
+//   residual costs; prefetching the residual rows into L2, holding them in
+//   registers (16 a residual: ptxas spilled) and storing the row by the
+//   threads instead of TMA were each no faster.
 // Shared memory: 1024 (alignment) + 73,728 + 3 x 36,864 + 2 x 8,192 =
-// 201,728 B of the 232,448 a block may use.
+// 201,728 B of the 232,448 a block may use; 218,112 B with a second
+// residual row per warpgroup.
 
 #pragma once
 
@@ -81,6 +92,41 @@ constexpr uint32_t OUT_BYTES = TM * PIX;           // 8,192: one warpgroup's out
 constexpr size_t SMEM_BYTES = 1024 + W_BYTES + STAGES * STAGE_BYTES + TH * OUT_BYTES;
 constexpr int BAR_PATCH = 1;                       // named barriers: 1 for both warpgroups,
 constexpr int BAR_OUT = 2;                         // 2 + w for warpgroup w's epilogue
+
+// Round an f32 value to bf16 and back: the points where the reference rounds.
+__device__ __forceinline__ float rnd(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+// mish(x) = x * tanh(softplus(x)) = x * n(n + 2) / (n(n + 2) + 2), n = e^x,
+// without a branch (one per element slowed the epilogue on the card): past
+// x = 20 the quotient is 1 in f32 (as tanh(softplus) is), and n = e^20 keeps
+// n(n + 2) inside __fdividef's range. The fast exp and division are within a
+// few f32 ulp, far below the bf16 rounding that follows.
+__device__ __forceinline__ float mish(float x) {
+  const float n = __expf(fminf(x, 20.f));
+  const float p = n * (n + 2.f);
+  return x * __fdividef(p, p + 2.f);
+}
+
+// A bf16 pair (lower address first) and its f32 values.
+__device__ __forceinline__ uint32_t pack(float a, float b) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ float2 unpack(uint32_t u) { return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u)); }
+
+// A hook's per-thread bias: channels 8 n + 2 t, + 1 at b[2 n], b[2 n + 1].
+struct BiasRegs {
+  float b[16];
+};
+__device__ __forceinline__ BiasRegs bias_regs(const float* bias, int t) {
+  BiasRegs r;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    r.b[2 * n] = bias[8 * n + 2 * t];
+    r.b[2 * n + 1] = bias[8 * n + 2 * t + 1];
+  }
+  return r;
+}
 
 #define CW_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define CW_F16(i) CW_F4(i), CW_F4(i + 4), CW_F4(i + 8), CW_F4(i + 12)
@@ -150,37 +196,49 @@ __device__ __forceinline__ void patch_reflect(unsigned char* st, int y0, int x0,
 
 // Write one warpgroup's accumulator through the epilogue hook into its
 // swizzled staging row (pixel m at m * 128 B, channel chunk n at n ^ (m % 8);
-// m % 8 = g). The hook sees output pixel (b, y, x0 + m) and channels
-// 8 n + 2 t, + 1.
+// m % 8 = g). The hook sees output pixel (b, y, x0 + m), channels
+// 8 n + 2 t, + 1, and the residuals' pairs there: the first from the staging
+// row itself, which the result then overwrites, the second from res1.
 template <class Epi>
 __device__ __forceinline__ void stage_row(const Epi& epi, const typename Epi::Regs& regs, const float (&acc)[32],
-                                          unsigned char* out, int b, int y, int x0) {
+                                          unsigned char* out, const unsigned char* res1, int b, int y, int x0) {
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int m = warp * 16 + g + 8 * h;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<uint32_t*>(out + m * PIX + ((n ^ g) << 4) + 4 * t) =
-          epi(regs, n, b, y, x0 + m, acc[4 * n + 2 * h], acc[4 * n + 2 * h + 1]);
+    for (int n = 0; n < 8; ++n) {
+      const int off = m * PIX + ((n ^ g) << 4) + 4 * t;
+      uint32_t* p = reinterpret_cast<uint32_t*>(out + off);
+      const uint32_t r0 = Epi::NRES > 0 ? *p : 0u;
+      const uint32_t r1 = Epi::NRES > 1 ? *reinterpret_cast<const uint32_t*>(res1 + off) : 0u;
+      *p = epi(regs, n, b, y, x0 + m, acc[4 * n + 2 * h], acc[4 * n + 2 * h + 1], r0, r1);
+    }
   }
 }
 
 // Epi: a copyable struct with a type Regs (per-thread constants),
-// `Regs setup(int t) const` (t = lane % 4) and
-// `uint32_t operator()(const Regs&, int n, int b, int y, int x, float s0, float s1) const`,
+// `static constexpr int NRES` (0, 1 or 2 residual tensors read at the output
+// pixel), `Regs setup(int t) const` (t = lane % 4) and
+// `uint32_t operator()(const Regs&, int n, int b, int y, int x, float s0, float s1,
+//                      uint32_t r0, uint32_t r1) const`,
 // which maps the conv's f32 sums of channels (8 n + 2 t, + 1) at pixel
-// (b, y, x) to the packed bf16 pair stored there.
+// (b, y, x), and the residuals' packed bf16 pairs there (0 past NRES), to the
+// packed bf16 pair stored there.
 template <bool REFLECT, class Epi>
 __global__ void __launch_bounds__(NT, 1)
     conv_wgmma_kernel(const __grid_constant__ CUtensorMap tin, const __grid_constant__ CUtensorMap tw,
-                      const __grid_constant__ CUtensorMap tout, const Epi epi, int B, int H, int W) {
+                      const __grid_constant__ CUtensorMap tout, const __grid_constant__ CUtensorMap tres0,
+                      const __grid_constant__ CUtensorMap tres1, const Epi epi, int B, int H, int W) {
+  constexpr int NRES = Epi::NRES;
+  static_assert(NRES >= 0 && NRES <= 2, "a hook reads at most two residuals");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t bar_w, full[STAGES], empty[STAGES];
+  __shared__ __align__(8) uint64_t bar_w, full[STAGES], empty[STAGES], bar_res[TH];
   const uint32_t base = smem_addr(smem_raw);
   unsigned char* sw = smem_raw + ((1024 - (base & 1023)) & 1023);  // 1024 B aligned: the swizzle atoms
   unsigned char* sx = sw + W_BYTES;                                 // stage s at s * STAGE_BYTES
   unsigned char* so = sx + STAGES * STAGE_BYTES;                    // warpgroup w's row at w * OUT_BYTES
+  unsigned char* sr = so + TH * OUT_BYTES;                          // its second residual's row (NRES == 2)
 
   const int tiles_x = (W + TM - 1) / TM, tiles_y = (H + TH - 1) / TH;
   const long per_image = (long)tiles_x * tiles_y;
@@ -217,6 +275,7 @@ __global__ void __launch_bounds__(NT, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], NT);
     }
+    for (int w = 0; w < TH; ++w) mbar_init(&bar_res[w], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect(&bar_w, W_BYTES);
     for (int tap = 0; tap < 9; ++tap) tma_load(&tw, sw + tap * TAP_BYTES, &bar_w, 0, 0, tap, 0);
@@ -231,6 +290,23 @@ __global__ void __launch_bounds__(NT, 1)
   const uint64_t dx = desc(sx + wg * ROW_BYTES, 16, 1024);
   constexpr uint64_t stage_step = STAGE_BYTES >> 4;
   unsigned char* out = so + wg * OUT_BYTES;
+  unsigned char* res1 = sr + wg * OUT_BYTES;
+  // Tile j's residuals at the warpgroup's output row, into the staging rows
+  // (by the leader, once the staging row is free). A row past the image
+  // (odd H) loads nothing: its result is not stored.
+  auto load_res = [&](int j) {
+    int b, y0, x0;
+    coords(j, b, y0, x0);
+    if (y0 + wg >= H) {
+      mbar_arrive(&bar_res[wg]);
+      return;
+    }
+    mbar_expect(&bar_res[wg], NRES * OUT_BYTES);
+    tma_load(&tres0, out, &bar_res[wg], 0, x0, y0 + wg, b);
+    if constexpr (NRES > 1) tma_load(&tres1, res1, &bar_res[wg], 0, x0, y0 + wg, b);
+  };
+  if constexpr (NRES > 0)
+    if (leader) load_res(0);
   // Wait for tile j's stage and patch its reflected border.
   auto land = [&](int j) {
     const int s = j % STAGES;
@@ -248,19 +324,30 @@ __global__ void __launch_bounds__(NT, 1)
   };
 
   // Release tile j's stage (its products are done), run its epilogue into
-  // the staging row and store it; then load tile j + STAGES into the stage.
+  // the staging row and store it; then load tile j + 1's residuals into the
+  // staging rows and tile j + STAGES into the stage.
   auto finish = [&](int j, const float(&acc)[32]) {
     mbar_arrive(&empty[j % STAGES]);
     int b, y0, x0;
     const bool real = coords(j, b, y0, x0);
-    if (leader) bulk_wait_read<0>();  // the previous store is done reading the staging row
-    named_sync(BAR_OUT + wg, 128);
-    stage_row(epi, regs, acc, out, b, y0 + wg, x0);
+    if constexpr (NRES > 0) {
+      mbar_wait(&bar_res[wg], j & 1);  // loaded after the previous store was done reading the staging row
+    } else {
+      if (leader) bulk_wait_read<0>();  // the previous store is done reading the staging row
+      named_sync(BAR_OUT + wg, 128);
+    }
+    stage_row(epi, regs, acc, out, res1, b, y0 + wg, x0);
     fence_async_smem();
     named_sync(BAR_OUT + wg, 128);
     if (leader && real) {
       tma_store(&tout, out, 0, x0, y0 + wg, b);
       bulk_commit();
+    }
+    if constexpr (NRES > 0) {
+      if (leader && j + 1 < n) {
+        bulk_wait_read<0>();
+        load_res(j + 1);
+      }
     }
     if (loader && j + STAGES < n) load(j + STAGES);
     __syncwarp();
@@ -313,29 +400,35 @@ inline int make_map(CUtensorMap* map, const void* p, int B, int H, int W, int bo
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// x, out: (B, H, W, 64) bf16, 16-byte aligned; w: (9, C_out, C_in) bf16.
-// Returns cudaGetLastError() after the launch.
+// x, out and the residuals res0, res1 (the first Epi::NRES of them read):
+// (B, H, W, 64) bf16, 16-byte aligned; w: (9, C_out, C_in) bf16. Returns
+// cudaGetLastError() after the launch.
 template <bool REFLECT, class Epi>
 int launch_conv_wgmma(const void* x, const void* w, void* out, const Epi& epi, int B, int H, int W,
-                      cudaStream_t stream) {
+                      cudaStream_t stream, const void* res0 = nullptr, const void* res1 = nullptr) {
   auto kern = conv_wgmma_kernel<REFLECT, Epi>;
+  constexpr size_t smem = SMEM_BYTES + (Epi::NRES > 1 ? TH * OUT_BYTES : 0);
+  static_assert(smem <= 232448, "more shared memory than a block may use");
   static int nsm = 0;  // per instantiation
   if (nsm == 0) {
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     int dev = 0;
     if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
     if ((err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
   }
   if (B <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  CUtensorMap tin, tw, tout;
+  if ((Epi::NRES > 0 && !res0) || (Epi::NRES > 1 && !res1)) return (int)cudaErrorInvalidValue;
+  CUtensorMap tin, tw, tout, tres0, tres1;
   int rc = make_map(&tin, x, B, H, W, HW, HH);
   if (!rc) rc = make_map(&tw, w, 1, 9, C, C, 1);  // the weights as (C_in, C_out, 9 taps, 1)
   if (!rc) rc = make_map(&tout, out, B, H, W, TM, 1);
+  if (!rc) rc = make_map(&tres0, Epi::NRES > 0 ? res0 : out, B, H, W, TM, 1);
+  if (!rc) rc = make_map(&tres1, Epi::NRES > 1 ? res1 : out, B, H, W, TM, 1);
   if (rc) return rc;
   const long ntiles = (long)B * ((H + TH - 1) / TH) * ((W + TM - 1) / TM);
   const unsigned grid = (unsigned)(ntiles < nsm ? ntiles : nsm);
-  kern<<<grid, NT, SMEM_BYTES, stream>>>(tin, tw, tout, epi, B, H, W);
+  kern<<<grid, NT, smem, stream>>>(tin, tw, tout, tres0, tres1, epi, B, H, W);
   return (int)cudaGetLastError();
 }
 

@@ -23,8 +23,8 @@ backward algorithms differ.
 import pytest
 import torch
 
-from chip_smoke import CONFIGS, GRAD_TOL, Regions, backward_inputs, chain_inputs, forward_launches, grad_errors
-from chip_smoke import _counters, flash_inputs, switches, unet_grads
+from chip_smoke import CONFIGS, CONV64_EDGES, CORE_REGIONS, GRAD_TOL, Regions, backward_inputs, chain_inputs
+from chip_smoke import _counters, core_edge_args, flash_inputs, forward_launches, grad_errors, switches, unet_grads
 
 pytestmark = pytest.mark.cuda
 
@@ -127,9 +127,8 @@ def test_unet_backward_matches_cpu(kernels, cfg):
 
 
 # conv3x3 at C = 64 also on every edge of the bf16 kernel's 2-row x 64-pixel
-# tiles: W one pixel short of, at and past a tile (and two tiles), H at the
-# reflect minimum, odd and ragged, one image and three
-CONV64_EDGES = [(b, h, w) for b in (1, 3) for h in (2, 3, 17) for w in (3, 63, 64, 65, 130)]
+# tiles (chip_smoke.CONV64_EDGES): W one pixel short of, at and past a tile
+# (and two tiles), H at the reflect minimum, odd and ragged, one image and three
 
 
 @pytest.mark.parametrize("c", [32, 64])
@@ -151,6 +150,40 @@ def test_conv3x3_widths_borders_and_odd_sizes(kernels, c, border, dtype, tol):
             torch.cuda.synchronize()
             assert (conv.launches, conv.launches_wgmma) == (before[0] + 1, before[1] + wgmma)
             assert _rel_err(got, plain(x, wc, bc, border, act)) <= tol, (b, h, w, act)
+
+
+@pytest.mark.parametrize("region", CORE_REGIONS)
+def test_chain_core_at_tile_edges(kernels, region):
+    """The bf16 C = 64 chain of every region on the conv core, on each edge
+    of its tiles (``CONV64_EDGES``; the Downsample fold at the next even H
+    and W): each call counts one launch and one call on the core, and
+    matches the plain version at the bf16 tolerance."""
+    kern, plain = kernels[region.removesuffix("_cond")]
+    for b, h, w in CONV64_EDGES:
+        args = core_edge_args(region, b, h, w)
+        before = kern.launches, kern.launches_wgmma
+        got = kern(*args)
+        torch.cuda.synchronize()
+        assert (kern.launches, kern.launches_wgmma) == (before[0] + 1, before[1] + 1)
+        want = plain(*args)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for g, wt in zip(got, want):
+            assert g.shape == wt.shape and g.is_contiguous(memory_format=torch.channels_last)
+            assert _rel_err(g, wt) <= 3e-2, (b, h, w)
+
+
+def test_chain_core_front_pieces(kernels):
+    """The stem launch writing (h1, r1) and the h1 pass, alone, against
+    their plain versions at ragged shapes."""
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import block_chain as bc
+
+    for b, h, w in ((1, 2, 3), (3, 17, 65), (2, 26, 130)):
+        r = Regions(b, 2 * h, 2 * w, torch.bfloat16, "cuda", seed=b + h + w)
+        x, wa, ba, wr, br, tv1 = r.stem[:6]
+        for g, wt in zip(bc._launch_stem(x, wa, ba, wr, br, tv1), bc.stem_h1_plain(x, wa, ba, wr, br, tv1)):
+            assert _rel_err(g, wt) <= 3e-2, (b, h, w)
+        a_pre, _, tv1 = r.chain[:3]
+        assert _rel_err(bc._launch_h1(a_pre, tv1), bc.h1_plain(a_pre, tv1)) <= 3e-2, (b, h, w)
 
 
 @pytest.mark.parametrize("c", [32, 96, 128, 192, 256])

@@ -29,8 +29,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def kernel_class(name: str) -> str:
-    if any(k in name for k in ("conv_tile_kernel", "conv_wgmma_kernel", "stem_kernel", "conv_stream_kernel",
-                               "chain_wide_kernel")):
+    if any(k in name for k in ("conv_tile_kernel", "conv_wgmma_kernel", "stem_kernel", "h1_kernel",
+                               "conv_stream_kernel", "chain_wide_kernel")):
         return "port kernels (convs and regions)"
     if "flash_kernel" in name:
         return "port kernel (flash attention)"
