@@ -10,10 +10,11 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    ``dgm_img_super_resolution_tpu_torch/ops/kernels/csrc``.
 2. Hold each SRDiff kernel against its plain PyTorch version on the card: in
    bf16 at the main path's shapes (batch 8, 512x512 HR; the wide chain at
-   the three stage shapes of configuration C), and in float32 with TF32 off
-   at edge shapes (the chain at C = 32 and 96-256 on a ragged 13x21); time
-   both with CUDA events, and the one PyTorch call that computes the same
-   function where there is one. conv3x3 in bf16 at C = 64 runs the
+   the five shapes configuration C runs it at), and in float32 with TF32 off
+   at edge shapes (the chain at C = 32 and 96-256 on a ragged 13x21; and
+   bf16 at C = 96, the wide kernel's remaining bf16 route); time both with
+   CUDA events, and the one PyTorch call that computes the same function
+   where there is one. conv3x3 in bf16 at C = 64 runs the
    warpgroup-MMA kernel (``csrc/conv3x3_wgmma.cu``): its counter must count
    every such call, a single non-zero tap at dx = 1 and 2 checks its shifted
    operand descriptors, and it is also timed at zero border without Mish
@@ -23,7 +24,9 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    (``csrc/block_chain_wgmma.cu``): each region is also held at every edge
    of the core's tiles, and the route's two front pieces, the stem launch
    writing h1 and the h1 pass, are checked and timed alone (``stem_ms``,
-   ``h1_ms``).
+   ``h1_ms``). So does the bf16 chain at C = 128, 192 and 256 (the wide
+   core, ``csrc/conv_wgmma_wide.cuh``): it too is held at every tile edge,
+   with and without its condition, and its h1 pass is timed at each shape.
 3. Serve the default full-width config (hidden 64, mults 1|2|3|4, RRDB nb 8,
    seeded random weights) with DDIM 20 steps, eta 1, bf16: batch 8 of
    128x128 uint8 -> (8, 512, 512, 3) uint8, under four configurations of
@@ -33,7 +36,7 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    (every ResnetBlock pair through the chain kernel). Each is warmed up,
    then the kernels' launch counters are set to 0 just before its timed
    batch and read just after, and must equal the counts each configuration
-   implies (the chain's per width).
+   implies (the chain's per width, and under C per shape).
 4. Run the full-width model in float32 at LR 32x32 on the card (kernels) and
    on the CPU (plain versions) with the same weights and injected noise: one
    UNet forward and a ddim4 serve on the card under the defaults, A, B and
@@ -131,15 +134,15 @@ CONFIGS = {
 # stages 1-3, the mid pair, up stages 0-2). block_chain3_c<C> counts the
 # chain's launches at width C; <wrapper>_wgmma counts a wrapper's calls on
 # the warpgroup-MMA conv core: conv3x3's bf16 C = 64 kernel, and the chain
-# regions whose bf16 C = 64 chain runs there (every stem, stem_ds and head
-# call, and block_chain3's at C = 64).
+# regions whose bf16 chain runs there (every stem, stem_ds and head call,
+# and block_chain3's at C = 64, 128, 192 and 256).
 SERVE_LAUNCHES = {
     "default": {"block_chain3_stem": 20, "block_chain3_stem_wgmma": 20, "block_chain3": 20,
                 "block_chain3_wgmma": 20, "block_chain3_c64": 20, "tail_fuse": 20},
     "A": {"block_chain3_stem_ds": 20, "block_chain3_stem_ds_wgmma": 20, "block_chain3_head": 20,
           "block_chain3_head_wgmma": 20, "tail_fuse": 20},
     "B": {"conv3x3": 140, "conv3x3_wgmma": 140},
-    "C": {"block_chain3_stem": 20, "block_chain3_stem_wgmma": 20, "block_chain3": 140, "block_chain3_wgmma": 20,
+    "C": {"block_chain3_stem": 20, "block_chain3_stem_wgmma": 20, "block_chain3": 140, "block_chain3_wgmma": 140,
           "block_chain3_c64": 20, "block_chain3_c128": 40, "block_chain3_c192": 40, "block_chain3_c256": 40,
           "tail_fuse": 20},
 }
@@ -149,11 +152,16 @@ SERVE_LAUNCHES = {
 # odd and ragged, one image and three.
 CONV64_EDGES = [(b, h, w) for b in (1, 3) for h in (2, 3, 17) for w in (3, 63, 64, 65, 130)]
 CORE_REGIONS = ("stem", "stem_ds", "chain", "chain_cond", "head")
-# The wide chain's shapes on C's path at batch 8, 512x512 HR (B, C, H, W):
-# down stage 1 (C = 128 also runs up stage 1 at 128x128), down stage 2 (and
-# up stage 0 at 64x64), down stage 3 and the mid pair.
-WIDE_SHAPES = ((8, 128, 256, 256), (8, 192, 128, 128), (8, 256, 64, 64))
+# The wide chain's shapes on C's path at batch 8, 512x512 HR (B, C, H, W)
+# and its launches there a batch: down stage 1 and up stage 1 at C = 128,
+# down stage 2 and up stage 0 at 192, down stage 3 and the mid pair at 256.
+WIDE_SHAPES = ((8, 128, 256, 256), (8, 128, 128, 128), (8, 192, 128, 128), (8, 192, 64, 64), (8, 256, 64, 64))
+WIDE_LAUNCHES = {(128, 256, 256): 20, (128, 128, 128): 20, (192, 128, 128): 20, (192, 64, 64): 20,
+                 (256, 64, 64): 40}
 WIDE_F32_WIDTHS = (32, 96, 128, 192, 256)  # on a ragged (2, C, 13, 21); 32 is the resident kernel's
+# The bf16 chain widths on the wide core, each also at the conv core's tile
+# edges (CONV64_EDGES), with and without the condition.
+WIDE_CORE_WIDTHS = (128, 192, 256)
 # The SD path's GroupNorm shapes: a UNet level-0 ResBlock at LR 256 (CFG
 # batch 2) and the VAE decoder's last up block at 1024x1024.
 GN_SHAPES = (((2, 256, 256, 256), 1e-5), ((1, 128, 1024, 1024), 1e-6))
@@ -352,6 +360,34 @@ def core_edge_args(region, b, h, w, device="cuda"):
     return getattr(Regions(b, h, w, torch.bfloat16, device, seed=seed), region)
 
 
+def ptxas_report(log: str) -> list[str]:
+    """One line per kernel compiled (its mangled name shortened to the
+    kernel and its template arguments; registers, spills, static shared
+    memory), then every "Performance Loss" warning (a serialised wgmma:
+    C7518, C7514), from an ``nvcc -Xptxas -v`` log."""
+    import re
+
+    lines, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            mangled = m.group(1)
+            i, ident = 3 if mangled.startswith("_ZN") else 2, mangled
+            while i < len(mangled) and mangled[i].isdigit():  # the (nested) name: <length><identifier>...
+                n = re.match(r"\d+", mangled[i:]).group()
+                ident, i = mangled[i + len(n):i + len(n) + int(n)], i + len(n) + int(n)
+            args = re.findall(r"Li(\d+)E|Lb([01])E|\d((?:Y1|H2|Out|BiasAct)(?:ILb[01]E)?)", mangled[i:])
+            name = ident + "<" + ",".join(a or b or c for a, b, c in args) + ">"
+        elif "spill stores" in ln and name:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            lines.append(f"{name}: {ln.split(':', 1)[-1].strip()}; {spill}")
+            name = None
+        elif "Performance Loss" in ln or "C7518" in ln or "C7514" in ln:
+            lines.append(ln.strip())
+    return lines
+
+
 def phase_build(out_dir):
     from dgm_img_super_resolution_tpu_torch.ops.kernels import _build
 
@@ -361,9 +397,8 @@ def phase_build(out_dir):
     for path in libs.values():
         log = Path(f"{path}.log")
         if log.exists():
-            report = [ln for ln in log.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln or "Performance Loss" in ln]
-            print("\n".join(f"  ptxas {path.name}: {ln.strip()}" for ln in report[:12]), flush=True)
+            report = ptxas_report(log.read_text())
+            print("\n".join(f"  ptxas {path.name.split('-')[0]}: {ln}" for ln in report), flush=True)
             if out_dir:
                 shutil.copy(log, out_dir / log.name)
 
@@ -453,6 +488,13 @@ def phase_kernels():
         args, _ = chain_inputs(2, c, 13, 21, torch.float32, "cuda", seed=c, cond=True)
         _check(f"f32  block_chain3 C={c} cond B=2 13x21", bc.block_chain3(*args), bc.block_chain3_plain(*args),
                F32_TOL, failures)
+    # bf16 at C = 96 stays on the wide kernel (chain_wide.cu), off the core
+    args, _ = chain_inputs(2, 96, 13, 21, torch.bfloat16, "cuda", seed=96, cond=True)
+    before = bc.block_chain3.launches, bc.block_chain3.launches_wgmma
+    _check("bf16 block_chain3 C=96 cond B=2 13x21", bc.block_chain3(*args), bc.block_chain3_plain(*args),
+           BF16_TOL, failures)
+    if (bc.block_chain3.launches - before[0], bc.block_chain3.launches_wgmma - before[1]) != (1, 0):
+        failures.append("bf16 block_chain3 at C = 96 did not run chain_wide.cu")
     # bf16 at the main path's shapes
     r = Regions(8, 512, 512, torch.bfloat16, "cuda", seed=1)
     for name, (kern, plain, attr, source, replaces) in fns.items():
@@ -465,14 +507,32 @@ def phase_kernels():
     del r
     torch.cuda.empty_cache()
     _core_edges(failures)
+    _wide_core_edges(failures)
     _conv3x3_extra(next(row for row in rows if row["name"] == "conv3x3"), failures)
-    # the wide chain at configuration C's stage shapes (row 2's wide mode)
+    # the wide chain at configuration C's shapes (row 2's wide mode), on the
+    # wide core: an h1 pass (also timed alone) and three conv launches; and
+    # chain_wide.cu's three launches on the same inputs (``chain_wide_ms``)
     for b, c, h, w in WIDE_SHAPES:
-        args, work = chain_inputs(b, c, h, w, torch.bfloat16, "cuda", seed=c)
-        row = _timed_row(f"block_chain3_c{c}", bc.block_chain3, bc.block_chain3_plain, args, work,
-                         KERNEL_SRC + "chain_wide.cu", TPU_SRC + "block_chain.py:311", failures, str((b, c, h, w)))
-        rows.append(dict(row, shape=[b, c, h, w]))
-        del args
+        args, work = chain_inputs(b, c, h, w, torch.bfloat16, "cuda", seed=c + h)
+        before = bc.block_chain3.launches_wgmma
+        row = _timed_row(f"block_chain3_c{c}_{h}x{w}", bc.block_chain3, bc.block_chain3_plain, args, work,
+                         KERNEL_SRC + "block_chain_wgmma.cu", TPU_SRC + "block_chain.py:311", failures,
+                         str((b, c, h, w)))
+        if bc.block_chain3.launches_wgmma == before:
+            failures.append(f"bf16 block_chain3 {(b, c, h, w)} did not run on the conv core")
+        a_pre, _, tv1 = args[:3]
+        h1_ms = cuda_ms(lambda: bc._launch_h1(a_pre, tv1))
+        h1_bound, _ = bound(8.0 * a_pre.numel(), 2 * 2 * a_pre.numel() + 4 * tv1.numel(), PEAK_F32)
+        # the kernel this shape ran before the core took it, on the same inputs
+        wide_err = _check(f"bf16 chain_wide.cu {(b, c, h, w)}", bc._launch_chain(*args), bc.block_chain3_plain(*args),
+                          BF16_TOL, failures)
+        wide_ms = cuda_ms(lambda: bc._launch_chain(*args))
+        print(f"bf16 {(b, c, h, w)}: h1 piece {h1_ms:.4f} ms (bound {h1_bound:.4f} ms, bytes); chain_wide.cu "
+              f"{wide_ms:.3f} ms", flush=True)
+        rows.append(dict(row, shape=[b, c, h, w], sources=[KERNEL_SRC + "block_chain_wgmma.cu",
+                                                           KERNEL_SRC + "conv_wgmma_wide.cuh"],
+                         h1_ms=h1_ms, h1_bound_ms=h1_bound, chain_wide_ms=wide_ms, chain_wide_max_abs_err=wide_err))
+        del args, a_pre, tv1
     torch.cuda.empty_cache()
     return rows, failures
 
@@ -539,6 +599,34 @@ def _core_edges(failures):
     print(f"bf16 chain regions at the conv core's {len(CONV64_EDGES)} tile-edge shapes: worst rel err "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
           + f" (tol {BF16_TOL}); calls on the core {calls}", flush=True)
+
+
+def _wide_core_edges(failures):
+    """The bf16 chain at C = 128, 192 and 256 at every ``CONV64_EDGES``
+    shape, with and without its condition, against its plain version; every
+    call must run on the conv core."""
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import block_chain as bc
+
+    worst, n = {}, 0
+    before = bc.block_chain3.launches_wgmma
+    for c in WIDE_CORE_WIDTHS:
+        for cond in (False, True):
+            for b, h, w in CONV64_EDGES:
+                args = chain_inputs(b, c, h, w, torch.bfloat16, "cuda", seed=h * w + b + c, cond=cond)[0]
+                _, rel = rel_err(bc.block_chain3(*args), bc.block_chain3_plain(*args))
+                worst[c] = max(worst.get(c, 0.0), rel)
+                n += 1
+                if rel > BF16_TOL:
+                    failures.append(f"bf16 chain C={c} cond={cond} at the tile edge B={b} {h}x{w}: rel {rel:.3e}")
+    torch.cuda.synchronize()
+    calls = bc.block_chain3.launches_wgmma - before
+    if calls != n:
+        failures.append(f"bf16 wide chain at the tile edges: {calls} of {n} calls on the conv core")
+    print(f"bf16 wide chain at the conv core's {len(CONV64_EDGES)} tile-edge shapes, with and without cond: "
+          "worst rel err " + ", ".join(f"C={k} {v:.3e}" for k, v in worst.items())
+          + f" (tol {BF16_TOL}); {calls} of {n} calls on the core", flush=True)
 
 
 def _conv3x3_inputs(b, h, w, seed):
@@ -617,7 +705,7 @@ def _reset_counts(counters):
         fn.launches = 0
         if hasattr(fn, "launches_wgmma"):
             fn.launches_wgmma = 0
-    counters["block_chain3"].launches_by_c.clear()
+    counters["block_chain3"].launches_by_shape.clear()
 
 
 def _read_counts(counters) -> dict:
@@ -625,7 +713,10 @@ def _read_counts(counters) -> dict:
     block_chain3_c<C>, and a wrapper's calls on the conv core as
     <wrapper>_wgmma."""
     got = {name: fn.launches for name, fn in counters.items()}
-    got.update({f"block_chain3_c{c}": n for c, n in sorted(counters["block_chain3"].launches_by_c.items())})
+    by_c = {}
+    for (c, _, _), n in counters["block_chain3"].launches_by_shape.items():
+        by_c[c] = by_c.get(c, 0) + n
+    got.update({f"block_chain3_c{c}": n for c, n in sorted(by_c.items())})
     got.update({f"{name}_wgmma": fn.launches_wgmma for name, fn in counters.items() if hasattr(fn, "launches_wgmma")})
     return got
 
@@ -664,12 +755,19 @@ def phase_pipeline(rows):
             pipe.upscale_batch_device(imgs, as_uint8=True)  # warm-up
             torch.cuda.reset_peak_memory_stats()
             out, dt, launches = _serve(pipe, imgs, counters)
+        by_shape = dict(counters["block_chain3"].launches_by_shape)
         launches = {k: v for k, v in launches.items() if v}
         if launches != SERVE_LAUNCHES[cfg]:
             failures.append(f"config {cfg}: launches {launches}, expected {SERVE_LAUNCHES[cfg]}")
+        wide = {k: v for k, v in by_shape.items() if k[0] in WIDE_CORE_WIDTHS}
+        if cfg == "C" and wide != WIDE_LAUNCHES:
+            failures.append(f"config C: the wide chain's launches by (C, H, W) {wide}, expected {WIDE_LAUNCHES}")
         if tuple(out.shape) != (8, 512, 512, 3) or out.dtype != torch.uint8 or not out.is_cuda:
             failures.append(f"config {cfg}: pipeline output {tuple(out.shape)} {out.dtype} {out.device}")
         for row in rows:  # each row's count from the first configuration whose path runs it
+            if row["launches"] is None and "shape" in row and cfg == "C":  # the wide chain's, by shape
+                row["launches"] = by_shape.get(tuple(row["shape"][1:]), 0)
+                row["launches_config"] = cfg
             if row["launches"] is None and SERVE_LAUNCHES[cfg].get(row["name"]):
                 row["launches"] = launches.get(row.get("counter", row["name"]), 0)
                 row["launches_config"] = cfg
@@ -680,7 +778,8 @@ def phase_pipeline(rows):
                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                     "out_mean": float(out.float().mean())}
         print(f"pipeline ddim20 eta=1 bf16 B=8 128->512, config {cfg} {env}: {8 / dt:.2f} img/s "
-              f"({dt:.3f} s/batch), peak {res[cfg]['peak_mem_gib']:.2f} GiB, launches {launches}", flush=True)
+              f"({dt:.3f} s/batch), peak {res[cfg]['peak_mem_gib']:.2f} GiB, launches {launches}"
+              + (f", wide chain by (C, H, W) {wide}" if cfg == "C" else ""), flush=True)
     for cfg in ("A", "B", "C"):
         # bf16 rounds at other places in each configuration; the served
         # images agree to a few levels of 255

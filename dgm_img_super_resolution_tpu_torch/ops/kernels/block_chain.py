@@ -8,14 +8,19 @@ the three chained reflect 3x3 C->C convs, plus the RRDB condition);
 pair of a width in the chain set, and ``block_chain3_head`` the same with
 the stage's head conv over ``[x || skip]`` and its 1x1 residual conv in
 front. Each has a plain PyTorch version (the CPU path, and the yardstick the
-card is held against) and hand-written CUDA kernels for CUDA tensors. The
-chain runs in bfloat16 at C = 64 on the warpgroup-MMA conv core
+card is held against) and hand-written CUDA kernels for CUDA tensors, chosen
+by dtype and width. The chain runs in bfloat16 at C = 64, 128, 192 and 256
+(``CORE_WIDTHS``) on the warpgroup-MMA conv core
 (``csrc/block_chain_wgmma.cu``: the stem writing h1, or an h1 pass over an
-a_pre made outside, then three conv launches), in float32 and at C = 32 on
-``csrc/block_chain.cu``'s tiled conv, and at 96 to 512 channels on
-``csrc/chain_wide.cu``; the Downsample and head convs stay on
-``block_chain.cu`` in every dtype. Each wrapper's ``launches`` counts its
-calls on the card, ``launches_wgmma`` those whose chain ran on the core.
+a_pre made outside, then three conv launches; weights resident at C = 64,
+streamed in 64-channel slices above, ``csrc/conv_wgmma_wide.cuh``). Float32
+at C = 32 and 64 and bfloat16 at C = 32 run ``csrc/block_chain.cu``'s tiled
+conv; float32 from 96 on and bfloat16 at the other multiples of 32 (96,
+160, 224, 288-512) run ``csrc/chain_wide.cu``. The Downsample and head
+convs stay on ``block_chain.cu`` in every dtype. A failed build or launch
+raises: no route falls back to another. Each wrapper's ``launches`` counts
+its calls on the card, ``launches_wgmma`` those whose chain ran on the core;
+``block_chain3.launches_by_shape`` counts its calls by (C, H, W).
 Tensors are NCHW-shaped; on the card activations must be ``channels_last``
 so that the kernels see NHWC memory.
 """
@@ -97,12 +102,14 @@ def block_chain3_head_plain(x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, w
 
 
 RESIDENT_WIDTHS = (32, 64)  # chain widths whose weights stay in shared memory (block_chain.cu)
+CORE_WIDTHS = (64, 128, 192, 256)  # bf16 chain widths on the conv core (block_chain_wgmma.cu)
 
 
 def _on_core(t: torch.Tensor) -> bool:
     """Whether the chain over activations like ``t`` runs on the
-    warpgroup-MMA conv core (``csrc/block_chain_wgmma.cu``): bf16 at C = 64."""
-    return t.dtype == torch.bfloat16 and t.shape[1] == K.C
+    warpgroup-MMA conv core (``csrc/block_chain_wgmma.cu``): bf16 at a
+    width in ``CORE_WIDTHS``."""
+    return t.dtype == torch.bfloat16 and t.shape[1] in CORE_WIDTHS
 
 
 def stream_taps(w: torch.Tensor, dtype: torch.dtype, ks: int = 64) -> torch.Tensor:
@@ -134,7 +141,7 @@ def _launch_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
     """Three tiled-conv launches, conv_b building h1 in its input prologue:
     of the resident-weight kernel at C in ``RESIDENT_WIDTHS``, of the wide
     kernel (weights streamed over K in 32-channel slices, 64 or 32 output
-    channels a block) above."""
+    channels a block) above: float32, and bf16 off ``CORE_WIDTHS``."""
     b, c, h, w = a_pre.shape
     dt = a_pre.dtype
     y1 = torch.empty_like(a_pre)
@@ -156,11 +163,11 @@ def _launch_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
 
 def _launch_h1(a_pre, tv1):
     """The h1 pass of the core's route, where a_pre comes from outside."""
-    b, _, h, w = a_pre.shape
+    b, c, h, w = a_pre.shape
     h1 = torch.empty_like(a_pre)
     tv1_k = K.f32(tv1, a_pre.dtype)
-    fn = function("block_chain_wgmma", "dgmsr_h1", 3, 3)
-    rc = fn(K.dtype_code(a_pre), a_pre.data_ptr(), tv1_k.data_ptr(), h1.data_ptr(), b, h, w, K.stream_ptr())
+    fn = function("block_chain_wgmma", "dgmsr_h1", 3, 4)
+    rc = fn(K.dtype_code(a_pre), a_pre.data_ptr(), tv1_k.data_ptr(), h1.data_ptr(), c, b, h, w, K.stream_ptr())
     K.raise_on_error(rc, "block_chain3 (h1 pass)")
     return h1
 
@@ -197,9 +204,10 @@ def block_chain3(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond=None):
     vectors; ``w*``/``b*``: (C,C,3,3)/(C,) conv params; C a multiple of 32
     from 32 to 512. CPU tensors run the plain version; CUDA tensors launch
     the kernel (3 conv launches), differentiable through the plain version
-    (``_autograd.region``). ``launches`` counts every width,
-    ``launches_by_c`` each, ``launches_wgmma`` the calls on the conv core
-    (bf16 at C = 64: an h1 pass and 3 conv launches)."""
+    (``_autograd.region``). ``launches`` counts every call,
+    ``launches_by_shape`` those at each (C, H, W), ``launches_wgmma`` the
+    calls on the conv core (bf16 at a width in ``CORE_WIDTHS``: an h1 pass
+    and 3 conv launches)."""
     args = (a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
     if K.on_cpu(*args):
         return block_chain3_plain(*args)
@@ -208,16 +216,16 @@ def block_chain3(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond=None):
 
 def _block_chain3_cuda(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
     out, core = _chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
-    c = a_pre.shape[1]
+    _, c, h, w = a_pre.shape
     block_chain3.launches += 1
     block_chain3.launches_wgmma += core
-    block_chain3.launches_by_c[c] = block_chain3.launches_by_c.get(c, 0) + 1
+    block_chain3.launches_by_shape[c, h, w] = block_chain3.launches_by_shape.get((c, h, w), 0) + 1
     return out
 
 
 block_chain3.launches = 0
 block_chain3.launches_wgmma = 0
-block_chain3.launches_by_c = {}
+block_chain3.launches_by_shape = {}
 
 
 def _launch_stem(x, wa, ba, wr, br, tv1=None):

@@ -1,19 +1,26 @@
-// The bf16 C = 64 chain of the UNet's ResnetBlock-pair regions, by hand for
-// Hopper (sm_90a), on the warpgroup-MMA conv core of conv_wgmma.cuh.
+// The bf16 chain of the UNet's ResnetBlock-pair regions at C = 64, 128, 192
+// and 256, by hand for Hopper (sm_90a), on the warpgroup-MMA conv core of
+// conv_wgmma.cuh (C = 64, weights resident) and conv_wgmma_wide.cuh (C =
+// 128-256, K and the weights streamed in 64-channel slices).
 //
-// Replaces, for bfloat16 at C = 64, the chain part of
+// Replaces, for bfloat16 at those widths, the chain part of
 // dgm_img_super_resolution_tpu/ops/pallas/block_chain.py:
-//   _block_chain3_stem_pallas (down stage 0; with has_ds the Downsample
-//                              follows, on block_chain.cu's streamed conv)
-//   _block_chain3_pallas      (the chain from h1 on)
-//   _block_chain3_head_pallas (the chain behind the head, whose two convs
-//                              stay on block_chain.cu's streamed conv)
+//   _block_chain3_stem_pallas (down stage 0, C = 64; with has_ds the
+//                              Downsample follows, on block_chain.cu's
+//                              streamed conv)
+//   _block_chain3_pallas      (the chain from h1 on: packed at C = 64, its
+//                              unpacked wide mode, block_chain.py:323-330,
+//                              at 128-256)
+//   _block_chain3_head_pallas (the chain behind the head, C = 64, whose two
+//                              convs stay on block_chain.cu's streamed conv)
 // as their *_reference compositions define it, rounding where they round:
 //   h1  = rnd(mish(a_pre) + tv1),  a_pre = rnd(conv_a(x) + ba)
 //   y1  = rnd(rnd(mish(rnd(conv_b(h1) + bb))) + r1),  r1 = rnd(x . wr + br)
 //   h2  = rnd(mish(rnd(conv_c(y1) + bc)) + tv2)
 //   out = rnd(rnd(mish(rnd(conv_d(h2) + bd))) + y1) [then rnd(out + cond)]
-// float32, C = 32 and the wider chains stay on block_chain.cu / chain_wide.cu.
+// float32, C = 32 and the other wide widths (96, 160, 224, 288-512) stay on
+// block_chain.cu / chain_wide.cu: routing by dtype and width, in
+// ops/kernels/block_chain.py.
 //
 // Launches: the stem (stem_h1_kernel: conv_a, the 1x1 residual and h1) or,
 // where a_pre comes from outside the chain, the h1 pass (h1_kernel); then
@@ -23,7 +30,9 @@
 //
 // Bound on the card at the main path's shape (B=8, 512x512, bf16): the three
 // convs are 464 GFLOP (0.469 ms at 989 TFLOP/s) against the region's 549 MB
-// of unavoidable traffic (0.164 ms), so the tensor cores bound the region.
+// of unavoidable traffic (0.164 ms), so the tensor cores bound the region;
+// the wide chain likewise at configuration C's shapes (0.469 ms at (8, 128,
+// 256, 256), 0.264 at (8, 192, 128, 128), 0.117 at (8, 256, 64, 64)).
 // This design's own floor is higher: each launch moves its intermediates
 // through device memory, one conv its input and output and zero to two
 // residuals (0.54-1.07 GB at this shape, longer than its 0.156 ms of
@@ -39,7 +48,7 @@
 // its 8 channels of h1 and of r1 as one 16-byte store. The stem and the h1
 // pass are bound by their bytes.
 
-#include "conv_wgmma.cuh"
+#include "conv_wgmma_wide.cuh"
 
 using namespace dgmsr::cw;
 
@@ -167,14 +176,17 @@ __global__ void __launch_bounds__(STEM_NT) stem_h1_kernel(const bf16* __restrict
   }
 }
 
-// h1 = rnd(mish(a_pre) + tv1[b]) over (B, H, W, C), 8 channels (16 bytes) a
+// h1 = rnd(mish(a_pre) + tv1[b]) over (B, H, W, CW), 8 channels (16 bytes) a
 // thread and step.
+template <int CW>
 __global__ void __launch_bounds__(256) h1_kernel(const bf16* __restrict__ a_pre, const float* __restrict__ tv1,
                                                  bf16* __restrict__ h1, int nvec, int hw) {
+  constexpr int V = CW / 8;  // vectors a pixel
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < nvec; i += gridDim.x * blockDim.x) {
     float a[8], tv[8];
     unpack8(*reinterpret_cast<const uint4*>(a_pre + 8 * (size_t)i), a);
-    load8(tv1 + ((i >> 3) / hw) * C + (i & 7) * 8, tv);
+    const int pixel = i / V;
+    load8(tv1 + (pixel / hw) * CW + (i - pixel * V) * 8, tv);
 #pragma unroll
     for (int e = 0; e < 8; ++e) a[e] = mish(a[e]) + tv[e];
     *reinterpret_cast<uint4*>(h1 + 8 * (size_t)i) = pack8(a);
@@ -206,7 +218,7 @@ struct Y1 {
   static constexpr int NRES = 1;
   const float* bias;
   using Regs = BiasRegs;
-  __device__ __forceinline__ Regs setup(int t) const { return bias_regs(bias, t); }
+  __device__ __forceinline__ Regs setup(int t, int n0) const { return bias_regs(bias + n0, t); }
   __device__ __forceinline__ uint32_t operator()(const Regs& r, int n, int, int, int, float s0, float s1,
                                                  uint32_t res, uint32_t) const {
     const float2 p = unpack(res);
@@ -214,17 +226,20 @@ struct Y1 {
   }
 };
 
-// h2 = rnd(mish(v) + tv2[b]).
-struct H2 {
+// h2 = rnd(mish(v) + tv2[b]) at width CW.
+template <int CW> struct H2 {
   static constexpr int NRES = 0;
   const float* bias;
-  const float* tv;  // (B, C) float32
-  using Regs = BiasRegs;
-  __device__ __forceinline__ Regs setup(int t) const { return bias_regs(bias, t); }
+  const float* tv;  // (B, CW) float32
+  struct Regs {
+    BiasRegs bias;
+    int ch;  // the thread's first channel, n0 + 2 t
+  };
+  __device__ __forceinline__ Regs setup(int t, int n0) const { return {bias_regs(bias + n0, t), n0 + 2 * t}; }
   __device__ __forceinline__ uint32_t operator()(const Regs& r, int n, int b, int, int, float s0, float s1,
                                                  uint32_t, uint32_t) const {
-    const float2 tv2 = __ldg(reinterpret_cast<const float2*>(tv + b * C + 8 * n + 2 * (threadIdx.x & 3)));
-    return pack(mish(rnd(s0 + r.b[2 * n])) + tv2.x, mish(rnd(s1 + r.b[2 * n + 1])) + tv2.y);
+    const float2 tv2 = __ldg(reinterpret_cast<const float2*>(tv + b * CW + r.ch + 8 * n));
+    return pack(mish(rnd(s0 + r.bias.b[2 * n])) + tv2.x, mish(rnd(s1 + r.bias.b[2 * n + 1])) + tv2.y);
   }
 };
 
@@ -233,7 +248,7 @@ template <bool COND> struct Out {
   static constexpr int NRES = COND ? 2 : 1;
   const float* bias;
   using Regs = BiasRegs;
-  __device__ __forceinline__ Regs setup(int t) const { return bias_regs(bias, t); }
+  __device__ __forceinline__ Regs setup(int t, int n0) const { return bias_regs(bias + n0, t); }
   __device__ __forceinline__ uint32_t operator()(const Regs& r, int n, int, int, int, float s0, float s1,
                                                  uint32_t res0, uint32_t res1) const {
     const float2 y = unpack(res0);
@@ -247,16 +262,26 @@ template <bool COND> struct Out {
   }
 };
 
+// One reflect conv of the chain at width CW: the core with resident weights
+// at C = 64, the wide core (conv_wgmma_wide.cuh) above.
+template <int CW, class Epi>
+int conv(const void* x, const void* w, void* out, const Epi& epi, int B, int H, int W, cudaStream_t s,
+         const void* res0 = nullptr, const void* res1 = nullptr) {
+  if constexpr (CW == C) return launch_conv_wgmma<true>(x, w, out, epi, B, H, W, s, res0, res1);
+  else return launch_conv_wide<CW, true>(x, w, out, epi, B, H, W, s, res0, res1);
+}
+
 // conv_b, conv_c, conv_d on the core. h2 may be h1's memory: conv_b has read
 // h1 before conv_c writes h2 (one stream).
+template <int CW>
 int chain3(const void* h1, const void* r1, const float* tv2, const void* wb, const float* bb, const void* wc,
            const float* bc, const void* wd, const float* bd, const void* cond, void* y1, void* h2, void* out, int B,
            int H, int W, cudaStream_t s) {
-  int err = launch_conv_wgmma<true>(h1, wb, y1, Y1{bb}, B, H, W, s, r1);
-  if (!err) err = launch_conv_wgmma<true>(y1, wc, h2, H2{bc, tv2}, B, H, W, s);
+  int err = conv<CW>(h1, wb, y1, Y1{bb}, B, H, W, s, r1);
+  if (!err) err = conv<CW>(y1, wc, h2, H2<CW>{bc, tv2}, B, H, W, s);
   if (err) return err;
-  return cond ? launch_conv_wgmma<true>(h2, wd, out, Out<true>{bd}, B, H, W, s, y1, cond)
-              : launch_conv_wgmma<true>(h2, wd, out, Out<false>{bd}, B, H, W, s, y1);
+  return cond ? conv<CW>(h2, wd, out, Out<true>{bd}, B, H, W, s, y1, cond)
+              : conv<CW>(h2, wd, out, Out<false>{bd}, B, H, W, s, y1);
 }
 
 }  // namespace
@@ -281,31 +306,48 @@ int dgmsr_stem_h1(int dtype, const void* x, const void* wa, const void* ba, cons
   return (int)cudaGetLastError();
 }
 
-// The h1 pass where a_pre comes from outside the chain: a_pre and h1 are
-// (B, H, W, 64) bf16; tv1 is (B, 64) float32.
-int dgmsr_h1(int dtype, const void* a_pre, const void* tv1, void* h1, int B, int H, int W, void* stream) {
-  const long nvec = (long)B * H * W * (C / 8);
+// The h1 pass where a_pre comes from outside the chain: dtype 1 (bfloat16)
+// and c in {64, 128, 192, 256}; a_pre and h1 are (B, H, W, c) bf16; tv1 is
+// (B, c) float32.
+int dgmsr_h1(int dtype, const void* a_pre, const void* tv1, void* h1, int c, int B, int H, int W, void* stream) {
+  const long nvec = (long)B * H * W * (c / 8);
   if (dtype != 1 || B <= 0 || H <= 0 || W <= 0 || nvec >= (1L << 30)) return (int)cudaErrorInvalidValue;
-  static int resident = 0;
-  unsigned grid = 0;
-  const int err = persistent_grid(h1_kernel, 256, nvec, 256, &resident, &grid);
-  if (err) return err;
-  h1_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(a_pre), static_cast<const float*>(tv1), static_cast<bf16*>(h1), (int)nvec, H * W);
-  return (int)cudaGetLastError();
+  auto run = [&](auto kern, int* resident) {
+    unsigned grid = 0;
+    const int err = persistent_grid(kern, 256, nvec, 256, resident, &grid);
+    if (err) return err;
+    kern<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(a_pre), static_cast<const float*>(tv1), static_cast<bf16*>(h1), (int)nvec, H * W);
+    return (int)cudaGetLastError();
+  };
+  static int resident[4] = {0, 0, 0, 0};
+  switch (c) {
+    case 64: return run(h1_kernel<64>, &resident[0]);
+    case 128: return run(h1_kernel<128>, &resident[1]);
+    case 192: return run(h1_kernel<192>, &resident[2]);
+    case 256: return run(h1_kernel<256>, &resident[3]);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// The chain from h1 on: dtype 1 (bfloat16) and c 64 only. h1, r1, cond and
-// the outputs are (B, H, W, 64), 16-byte aligned; cond may be null; y1 and h2
-// are scratch (h2 may be h1). Weights are (9, C_out, C_in) bf16; biases and
-// tv2 float32. Three launches; returns cudaGetLastError() after the last.
+// The chain from h1 on: dtype 1 (bfloat16) and c in {64, 128, 192, 256}. h1,
+// r1, cond and the outputs are (B, H, W, c), 16-byte aligned; cond may be
+// null; y1 and h2 are scratch (h2 may be h1). Weights are (9, C_out, C_in)
+// bf16; biases and tv2 float32. Three launches; returns cudaGetLastError()
+// after the last.
 int dgmsr_chain3_wgmma(int dtype, const void* h1, const void* r1, const void* tv2, const void* wb, const void* bb,
                        const void* wc, const void* bc, const void* wd, const void* bd, const void* cond, void* y1,
                        void* h2, void* out, int c, int B, int H, int W, void* stream) {
-  if (dtype != 1 || c != C || H < 2 || W < 2) return (int)cudaErrorInvalidValue;
+  if (dtype != 1 || H < 2 || W < 2) return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  return chain3(h1, r1, f(tv2), wb, f(bb), wc, f(bc), wd, f(bd), cond, y1, h2, out, B, H, W,
-                static_cast<cudaStream_t>(stream));
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (c) {
+    case 64: return chain3<64>(h1, r1, f(tv2), wb, f(bb), wc, f(bc), wd, f(bd), cond, y1, h2, out, B, H, W, s);
+    case 128: return chain3<128>(h1, r1, f(tv2), wb, f(bb), wc, f(bc), wd, f(bd), cond, y1, h2, out, B, H, W, s);
+    case 192: return chain3<192>(h1, r1, f(tv2), wb, f(bb), wc, f(bc), wd, f(bd), cond, y1, h2, out, B, H, W, s);
+    case 256: return chain3<256>(h1, r1, f(tv2), wb, f(bb), wc, f(bc), wd, f(bd), cond, y1, h2, out, B, H, W, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -1,6 +1,12 @@
 // The UNet's ResnetBlock-pair chain at the wide stages (96 to 512 channels,
 // in multiples of 32), by hand for Hopper (sm_90a).
 //
+// Routing by dtype and width (ops/kernels/block_chain.py): bfloat16 at C =
+// 128, 192 and 256 runs on the warpgroup-MMA conv core instead
+// (block_chain_wgmma.cu over conv_wgmma_wide.cuh); this kernel serves
+// float32 at every width from 96 on, and bfloat16 at 96, 160, 224 and
+// 288-512.
+//
 // Replaces the unpacked (9, C, C) mode of
 // dgm_img_super_resolution_tpu/ops/pallas/block_chain.py:_block_chain3_pallas
 // (block_chain.py:323-330: every C but 64), which the UNet runs for each

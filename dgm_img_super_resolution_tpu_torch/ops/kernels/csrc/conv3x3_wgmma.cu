@@ -30,7 +30,7 @@ template <bool MISH> struct BiasAct {
   static constexpr int NRES = 0;
   const float* bias;  // (C,) float32
   using Regs = BiasRegs;
-  __device__ __forceinline__ Regs setup(int t) const { return bias_regs(bias, t); }
+  __device__ __forceinline__ Regs setup(int t, int) const { return bias_regs(bias, t); }
   __device__ __forceinline__ uint32_t operator()(const Regs& r, int n, int, int, int, float s0, float s1, uint32_t,
                                                  uint32_t) const {
     float v0 = rnd(s0 + r.b[2 * n]), v1 = rnd(s1 + r.b[2 * n + 1]);

@@ -1,7 +1,8 @@
 // A 3x3 conv C -> C (C = 64, bf16, NHWC, stride 1) on Hopper's warpgroup MMA
 // fed by TMA, with an epilogue hook: the conv core of conv3x3_wgmma.cu and of
 // the bf16 C = 64 chain of block_chain_wgmma.cu, built so that the regions
-// can move onto it one epilogue at a time.
+// can move onto it one epilogue at a time. conv_wgmma_wide.cuh runs the same
+// tile, stage and hooks at C = 128-256, streaming K and the weights.
 //
 // Design (sm_90a; every size below at C = 64, where one pixel's channels are
 // exactly one 128-byte swizzle row):
@@ -114,7 +115,8 @@ __device__ __forceinline__ uint32_t pack(float a, float b) {
 }
 __device__ __forceinline__ float2 unpack(uint32_t u) { return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u)); }
 
-// A hook's per-thread bias: channels 8 n + 2 t, + 1 at b[2 n], b[2 n + 1].
+// A hook's per-thread bias: channels 8 n + 2 t, + 1 at b[2 n], b[2 n + 1]
+// (of the N slice whose bias starts at `bias`).
 struct BiasRegs {
   float b[16];
 };
@@ -219,10 +221,11 @@ __device__ __forceinline__ void stage_row(const Epi& epi, const typename Epi::Re
 
 // Epi: a copyable struct with a type Regs (per-thread constants),
 // `static constexpr int NRES` (0, 1 or 2 residual tensors read at the output
-// pixel), `Regs setup(int t) const` (t = lane % 4) and
+// pixel), `Regs setup(int t, int n0) const` (t = lane % 4; n0 the first
+// output channel of the tile's N slice, 0 here) and
 // `uint32_t operator()(const Regs&, int n, int b, int y, int x, float s0, float s1,
 //                      uint32_t r0, uint32_t r1) const`,
-// which maps the conv's f32 sums of channels (8 n + 2 t, + 1) at pixel
+// which maps the conv's f32 sums of channels (n0 + 8 n + 2 t, + 1) at pixel
 // (b, y, x), and the residuals' packed bf16 pairs there (0 past NRES), to the
 // packed bf16 pair stored there.
 template <bool REFLECT, class Epi>
@@ -285,7 +288,7 @@ __global__ void __launch_bounds__(NT, 1)
 
   const int wg = threadIdx.x >> 7;
   const bool leader = (threadIdx.x & 127) == 0;  // issues the warpgroup's stores
-  const typename Epi::Regs regs = epi.setup(threadIdx.x & 3);
+  const typename Epi::Regs regs = epi.setup(threadIdx.x & 3, 0);
   const uint64_t dw = desc(sw, 16, 1024);                // K-major: LBO unused, 1024 B between 8-row groups
   const uint64_t dx = desc(sx + wg * ROW_BYTES, 16, 1024);
   constexpr uint64_t stage_step = STAGE_BYTES >> 4;
@@ -385,13 +388,14 @@ __global__ void __launch_bounds__(NT, 1)
   if (leader) bulk_wait<0>();
 }
 
-// NHWC bf16 (C, W, H, B) as a 4-D map with the given box, 128-byte swizzle,
-// zeros outside.
-inline int make_map(CUtensorMap* map, const void* p, int B, int H, int W, int box_w, int box_h) {
+// NHWC bf16 (c, W, H, B) as a 4-D map with a box of 64 channels (one
+// 128-byte swizzle row) x box_w x box_h x 1, zeros outside.
+inline int make_map(CUtensorMap* map, const void* p, int B, int H, int W, int box_w, int box_h, int c = C) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)PIX, (cuuint64_t)W * PIX, (cuuint64_t)H * W * PIX};
+  const cuuint64_t pix = 2ull * c;
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {pix, (cuuint64_t)W * pix, (cuuint64_t)H * W * pix};
   const cuuint32_t box[4] = {(cuuint32_t)C, (cuuint32_t)box_w, (cuuint32_t)box_h, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box, elem,

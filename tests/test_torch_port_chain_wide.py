@@ -100,10 +100,10 @@ def test_block_chain3_wide_matches_jax(c, h, w, with_cond):
     rng = np.random.default_rng(c + h * w + with_cond)
     args = _chain_inputs(rng, 2, h, w, c, with_cond)
     ref = block_chain3_reference(*_to_jax(*args))
-    counts = bc.block_chain3.launches, dict(bc.block_chain3.launches_by_c)
+    counts = bc.block_chain3.launches, dict(bc.block_chain3.launches_by_shape)
     got = bc.block_chain3(*_to_torch(*args))
     np.testing.assert_allclose(_nhwc(got), np.asarray(ref), **TOL)
-    assert (bc.block_chain3.launches, bc.block_chain3.launches_by_c) == counts  # the plain version launched nothing
+    assert (bc.block_chain3.launches, bc.block_chain3.launches_by_shape) == counts  # the plain version launched nothing
 
 
 @pytest.mark.parametrize("with_cond", [False, True])

@@ -23,7 +23,8 @@ backward algorithms differ.
 import pytest
 import torch
 
-from chip_smoke import CONFIGS, CONV64_EDGES, CORE_REGIONS, GRAD_TOL, Regions, backward_inputs, chain_inputs
+from chip_smoke import CONFIGS, CONV64_EDGES, CORE_REGIONS, GRAD_TOL, WIDE_CORE_WIDTHS, Regions, backward_inputs
+from chip_smoke import chain_inputs
 from chip_smoke import _counters, core_edge_args, flash_inputs, forward_launches, grad_errors, switches, unet_grads
 
 pytestmark = pytest.mark.cuda
@@ -173,8 +174,8 @@ def test_chain_core_at_tile_edges(kernels, region):
 
 
 def test_chain_core_front_pieces(kernels):
-    """The stem launch writing (h1, r1) and the h1 pass, alone, against
-    their plain versions at ragged shapes."""
+    """The stem launch writing (h1, r1) and the h1 pass (at every core
+    width), alone, against their plain versions at ragged shapes."""
     from dgm_img_super_resolution_tpu_torch.ops.kernels import block_chain as bc
 
     for b, h, w in ((1, 2, 3), (3, 17, 65), (2, 26, 130)):
@@ -184,6 +185,28 @@ def test_chain_core_front_pieces(kernels):
             assert _rel_err(g, wt) <= 3e-2, (b, h, w)
         a_pre, _, tv1 = r.chain[:3]
         assert _rel_err(bc._launch_h1(a_pre, tv1), bc.h1_plain(a_pre, tv1)) <= 3e-2, (b, h, w)
+        for c in WIDE_CORE_WIDTHS:
+            a_pre, _, tv1 = chain_inputs(b, c, h, w, torch.bfloat16, "cuda", seed=c + h)[0][:3]
+            assert _rel_err(bc._launch_h1(a_pre, tv1), bc.h1_plain(a_pre, tv1)) <= 3e-2, (c, b, h, w)
+
+
+@pytest.mark.parametrize("c", WIDE_CORE_WIDTHS)
+def test_wide_chain_core_at_tile_edges(kernels, c):
+    """The bf16 chain at C = 128, 192 and 256 on the wide conv core, on
+    each edge of its tiles (``CONV64_EDGES``), with and without its
+    condition: each call counts one launch and one call on the core, and
+    matches the plain version at the bf16 tolerance."""
+    chain, plain = kernels["chain"]
+    for cond in (False, True):
+        for b, h, w in CONV64_EDGES:
+            args = chain_inputs(b, c, h, w, torch.bfloat16, "cuda", seed=h * w + b + c, cond=cond)[0]
+            before = chain.launches, chain.launches_wgmma
+            got = chain(*args)
+            torch.cuda.synchronize()
+            assert (chain.launches, chain.launches_wgmma) == (before[0] + 1, before[1] + 1)
+            want = plain(*args)
+            assert got.shape == want.shape and got.is_contiguous(memory_format=torch.channels_last)
+            assert _rel_err(got, want) <= 3e-2, (cond, b, h, w)
 
 
 @pytest.mark.parametrize("c", [32, 96, 128, 192, 256])
@@ -191,14 +214,16 @@ def test_chain_core_front_pieces(kernels):
 @pytest.mark.parametrize("b,h,w", [(2, 13, 21), (1, 2, 35)])
 def test_chain_at_every_width(kernels, c, dtype, tol, b, h, w):
     """The chain off C = 64: the resident kernel at 32, the wide kernel
-    above (N slices of 32 channels at 96, of 64 at 128-256), with the
-    condition; H and W not multiples of the 8x16 tile. Counted per width."""
+    above (N slices of 32 channels at 96, of 64 at 128-256), but bf16 at
+    128-256 on the conv core; with the condition; H and W not multiples of
+    the tiles. Counted per (C, H, W), and on the core where it runs there."""
     chain, plain = kernels["chain"]
     args, _ = chain_inputs(b, c, h, w, dtype, "cuda", seed=c + h, cond=True)
-    before, before_c = chain.launches, chain.launches_by_c.get(c, 0)
+    before, before_c, before_core = chain.launches, chain.launches_by_shape.get((c, h, w), 0), chain.launches_wgmma
     got = chain(*args)
     torch.cuda.synchronize()
-    assert chain.launches == before + 1 and chain.launches_by_c[c] == before_c + 1
+    assert chain.launches == before + 1 and chain.launches_by_shape[c, h, w] == before_c + 1
+    assert chain.launches_wgmma == before_core + (dtype == torch.bfloat16 and c in WIDE_CORE_WIDTHS)
     want = plain(*args)
     assert got.shape == want.shape and got.dtype == want.dtype
     assert got.is_contiguous(memory_format=torch.channels_last)

@@ -2,7 +2,7 @@
 """Where the time of one serve goes on the GPU (the PyTorch port).
 
     python3 tools/torch_port_profile.py [--model srdiff|sd] [--config default|A|B|C] [--batch N] [--steps 20]
-                                        [--lr PX] [--out DIR]
+                                        [--lr PX] [--top 20] [--out DIR]
 
 ``--model srdiff`` (default) serves the default full-width SRDiff config
 (seeded random weights, bf16, DDIM ``--steps`` steps with eta 1, batch
@@ -12,7 +12,7 @@ x4-upscaler at the published widths (seeded random weights, bf16, DDIM
 ``--steps`` steps with eta 0, guidance 9, noise level 20, batch ``--batch``
 (1) of ``--lr``-square (256) uint8 LR -> x4). Each serves once to warm up,
 then once under ``torch.profiler``. Prints the device time by kernel class
-and the top kernels, the device's busy and idle share of the wall time, and
+and the ``--top`` kernels, the device's busy and idle share of the wall time, and
 one JSON line with the same numbers. ``--out DIR`` also writes a Chrome trace.
 Needs one CUDA device and nvcc; run from the root of the repository.
 """
@@ -30,7 +30,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 def kernel_class(name: str) -> str:
     if any(k in name for k in ("conv_tile_kernel", "conv_wgmma_kernel", "stem_kernel", "h1_kernel",
-                               "conv_stream_kernel", "chain_wide_kernel")):
+                               "conv_stream_kernel", "chain_wide_kernel", "conv_wide_kernel")):
         return "port kernels (convs and regions)"
     if "flash_kernel" in name:
         return "port kernel (flash attention)"
@@ -49,6 +49,7 @@ def main() -> int:
                     help="SRDiff kernel switches (chip_smoke.CONFIGS)")
     ap.add_argument("--batch", type=int, default=None, help="images per serve (srdiff 8, sd 1)")
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--top", type=int, default=20, help="kernels listed by device time")
     ap.add_argument("--lr", type=int, default=None, help="LR side in pixels (srdiff 128, sd 256)")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
@@ -104,7 +105,7 @@ def profile_serve(args) -> int:
           f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), {len(kernels)} kernel names")
     for c, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {c:36s} {ms:9.1f} ms  {100 * ms / max(busy_ms, 1e-9):5.1f}% of device time")
-    top = sorted(kernels, key=lambda a: -a.device_time_total)[:20]
+    top = sorted(kernels, key=lambda a: -a.device_time_total)[:args.top]
     for a in top:
         print(f"  {a.device_time_total / 1e3:9.2f} ms  x{a.count:<5d} {a.key[:110]}")
     if args.out:
