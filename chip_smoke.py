@@ -27,6 +27,13 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    ``h1_ms``). So does the bf16 chain at C = 128, 192 and 256 (the wide
    core, ``csrc/conv_wgmma_wide.cuh``): it too is held at every tile edge,
    with and without its condition, and its h1 pass is timed at each shape.
+   The bf16 tail runs on the same core (``csrc/tail_fuse_wgmma.cu``: a
+   ConvT launch, then the core's 3x3 with Mish and the 1x1 in its
+   epilogue): it is held at every tile edge of its input, each of its two
+   launches is checked and timed alone against its plain piece
+   (``convt_ms``, ``conv_1x1_ms``), and ``tail_fuse.cu``'s tiled conv, its
+   route before, is timed on the same inputs (``tile_ms``); float32, and
+   bf16 with 12 outputs, must still run ``tail_fuse.cu``.
 3. Serve the default full-width config (hidden 64, mults 1|2|3|4, RRDB nb 8,
    seeded random weights) with DDIM 20 steps, eta 1, bf16: batch 8 of
    128x128 uint8 -> (8, 512, 512, 3) uint8, under four configurations of
@@ -133,23 +140,25 @@ CONFIGS = {
 # Block) and no region; under C the stem, the tail and seven chains (down
 # stages 1-3, the mid pair, up stages 0-2). block_chain3_c<C> counts the
 # chain's launches at width C; <wrapper>_wgmma counts a wrapper's calls on
-# the warpgroup-MMA conv core: conv3x3's bf16 C = 64 kernel, and the chain
+# the warpgroup-MMA conv core: conv3x3's bf16 C = 64 kernel, the chain
 # regions whose bf16 chain runs there (every stem, stem_ds and head call,
-# and block_chain3's at C = 64, 128, 192 and 256).
+# and block_chain3's at C = 64, 128, 192 and 256) and the bf16 tail.
 SERVE_LAUNCHES = {
     "default": {"block_chain3_stem": 20, "block_chain3_stem_wgmma": 20, "block_chain3": 20,
-                "block_chain3_wgmma": 20, "block_chain3_c64": 20, "tail_fuse": 20},
+                "block_chain3_wgmma": 20, "block_chain3_c64": 20, "tail_fuse": 20, "tail_fuse_wgmma": 20},
     "A": {"block_chain3_stem_ds": 20, "block_chain3_stem_ds_wgmma": 20, "block_chain3_head": 20,
-          "block_chain3_head_wgmma": 20, "tail_fuse": 20},
+          "block_chain3_head_wgmma": 20, "tail_fuse": 20, "tail_fuse_wgmma": 20},
     "B": {"conv3x3": 140, "conv3x3_wgmma": 140},
     "C": {"block_chain3_stem": 20, "block_chain3_stem_wgmma": 20, "block_chain3": 140, "block_chain3_wgmma": 140,
           "block_chain3_c64": 20, "block_chain3_c128": 40, "block_chain3_c192": 40, "block_chain3_c256": 40,
-          "tail_fuse": 20},
+          "tail_fuse": 20, "tail_fuse_wgmma": 20},
 }
 # The bf16 C = 64 kernels on the conv core (conv3x3 and the chain of rows 1,
 # 2, 4 and 5) also at every edge of its 2-row x 64-pixel tiles: W one pixel
 # short of, at and past a tile (and two tiles), H at the reflect minimum,
-# odd and ragged, one image and three.
+# odd and ragged, one image and three. The tail takes them as its input's
+# (B, H, W): the ConvT's tiles are 2 input rows x 64 input pixels, the
+# 3x3's then run over (2H, 2W).
 CONV64_EDGES = [(b, h, w) for b in (1, 3) for h in (2, 3, 17) for w in (3, 63, 64, 65, 130)]
 CORE_REGIONS = ("stem", "stem_ds", "chain", "chain_cond", "head")
 # The wide chain's shapes on C's path at batch 8, 512x512 HR (B, C, H, W)
@@ -343,6 +352,20 @@ def chain_inputs(b, c, h, w, dtype, device, seed=0, cond=False):
     return args, (2.0 * b * h * w * 27 * c * c, esize * b * h * w * (3 + cond) * c + 4 * 27 * c * c)
 
 
+def tail_args(b, h, w, dtype, device, seed=0, cout=3):
+    """Random arguments of ``tail_fuse`` (x, wt, bt, wf, bf, wo, bo) over x
+    (b, 64, h, w), as ``Regions`` makes them; ``cout`` other than 3 draws
+    its own 1x1 weight and bias."""
+    import torch
+
+    args = Regions(b, 2 * h, 2 * w, dtype, device, seed=seed).tail
+    if cout == 3:
+        return args
+    g = torch.Generator().manual_seed(seed + cout)
+    wo, bo = torch.randn(cout, 64, 1, 1, generator=g) / 8, torch.randn(cout, generator=g) * 0.1
+    return args[:5] + (wo.to(device), bo.to(device))
+
+
 def core_edge_args(region, b, h, w, device="cuda"):
     """bf16 arguments of a chain region (``CORE_REGIONS``) whose chain runs
     at (b, 64, h, w): the stem's and the chain's own shape (the chain with
@@ -376,7 +399,7 @@ def ptxas_report(log: str) -> list[str]:
             while i < len(mangled) and mangled[i].isdigit():  # the (nested) name: <length><identifier>...
                 n = re.match(r"\d+", mangled[i:]).group()
                 ident, i = mangled[i + len(n):i + len(n) + int(n)], i + len(n) + int(n)
-            args = re.findall(r"Li(\d+)E|Lb([01])E|\d((?:Y1|H2|Out|BiasAct)(?:ILb[01]E)?)", mangled[i:])
+            args = re.findall(r"Li(\d+)E|Lb([01])E|\d((?:Y1|H2|Out|BiasAct|Tail)(?:ILb[01]E)?)", mangled[i:])
             name = ident + "<" + ",".join(a or b or c for a, b, c in args) + ">"
         elif "spill stores" in ln and name:
             spill = ln.strip()
@@ -420,7 +443,7 @@ def _srdiff_kernels():
         "block_chain3": (bc.block_chain3, bc.block_chain3_plain, "chain",
                          KERNEL_SRC + "block_chain_wgmma.cu", TPU_SRC + "block_chain.py:311"),
         "tail_fuse": (tf.tail_fuse, tf.tail_fuse_plain, "tail",
-                      KERNEL_SRC + "tail_fuse.cu", TPU_SRC + "tail_fuse.py:281"),
+                      KERNEL_SRC + "tail_fuse_wgmma.cu", TPU_SRC + "tail_fuse.py:281"),
         "block_chain3_stem_ds": (bc.block_chain3_stem_ds, bc.block_chain3_stem_ds_plain, "stem_ds",
                                  KERNEL_SRC + "block_chain_wgmma.cu", TPU_SRC + "block_chain.py:733"),
         "block_chain3_head": (bc.block_chain3_head, bc.block_chain3_head_plain, "head",
@@ -504,9 +527,11 @@ def phase_kernels():
         rows.append(_timed_row(name, kern, plain, getattr(r, attr), getattr(r, f"{attr}_work"), source, replaces,
                                failures, "main shape"))
     _chain_pieces(r, {row["name"]: row for row in rows}, failures)
+    _tail_pieces(r, next(row for row in rows if row["name"] == "tail_fuse"), failures)
     del r
     torch.cuda.empty_cache()
     _core_edges(failures)
+    _tail_edges(failures)
     _wide_core_edges(failures)
     _conv3x3_extra(next(row for row in rows if row["name"] == "conv3x3"), failures)
     # the wide chain at configuration C's shapes (row 2's wide mode), on the
@@ -569,6 +594,79 @@ def _chain_pieces(r, rows, failures):
         for name in names:
             rows[name].update({f"{piece}_ms": ms, f"{piece}_plain_ms": plain_ms, f"{piece}_bound_ms": bound_ms,
                                f"{piece}_max_abs_err": err})
+
+
+def _tail_pieces(r, row, failures):
+    """The bf16 tail beyond its main-shape row: the row's call must have run
+    on the conv core; ``tail_fuse.cu``'s tiled conv, its route before the
+    core took it, on the same inputs (``tile_ms``); and the core route's two
+    launches alone against their plain pieces, each timed with its bound:
+    the ConvT writing y (``convt_ms``) and the 3x3 + Mish + 1x1 over y
+    (``conv_1x1_ms``)."""
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import tail_fuse as tf
+
+    x, wt, bt, wf, bf, wo, bo = r.tail
+    before = tf.tail_fuse.launches_wgmma
+    tf.tail_fuse(*r.tail)
+    if tf.tail_fuse.launches_wgmma != before + 1:
+        failures.append("bf16 tail_fuse at the main shape did not run on the conv core")
+    row["tile_max_abs_err"] = _check(f"bf16 {'tail_fuse.cu':20s} {tuple(x.shape)}", tf._launch_tile(*r.tail),
+                                     tf.tail_fuse_plain(*r.tail), BF16_TOL, failures)
+    row["tile_ms"] = cuda_ms(lambda: tf._launch_tile(*r.tail))
+    y = tf.convt_plain(x, wt, bt)
+    b, c, h2, w2 = y.shape
+    cout = wo.shape[0]
+    pieces = {
+        "convt": (lambda: tf._launch_convt(x, wt, bt), lambda: tf.convt_plain(x, wt, bt),
+                  (2.0 * b * h2 * w2 * 4 * c * c, 2 * (x.numel() + y.numel()) + 2 * 16 * c * c + 4 * c)),
+        "conv_1x1": (lambda: tf._launch_conv_mish_1x1(y, wf, bf, wo, bo),
+                     lambda: tf.conv_mish_1x1_plain(y, wf, bf, wo, bo),
+                     (2.0 * b * h2 * w2 * (9 * c * c + c * cout),
+                      2 * (y.numel() + b * h2 * w2 * cout) + 2 * 9 * c * c + 4 * (c + c * cout + cout))),
+    }
+    for piece, (kern, plain, (flops, nbytes)) in pieces.items():
+        err = _check(f"bf16 {piece + ' piece':20s} {tuple(x.shape if piece == 'convt' else y.shape)}", kern(),
+                     plain(), BF16_TOL, failures)
+        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16)
+        print(f"bf16 {piece + ' piece':20s}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}); {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB", flush=True)
+        row.update({f"{piece}_ms": ms, f"{piece}_plain_ms": plain_ms, f"{piece}_bound_ms": bound_ms,
+                    f"{piece}_max_abs_err": err})
+    print(f"bf16 tail_fuse {tuple(x.shape)}: conv core {row['ms']:.4f} ms (ConvT {row['convt_ms']:.4f} + 3x3 and "
+          f"1x1 {row['conv_1x1_ms']:.4f}), tail_fuse.cu {row['tile_ms']:.4f} ms", flush=True)
+
+
+def _tail_edges(failures):
+    """The bf16 tail at every ``CONV64_EDGES`` shape of its input against its
+    plain version, every call on the conv core; then a float32 tail and a
+    bf16 tail with 12 outputs, which must run ``tail_fuse.cu`` (counted in
+    ``launches``, not ``launches_wgmma``), against theirs."""
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import tail_fuse as tf
+
+    worst, before = 0.0, tf.tail_fuse.launches_wgmma
+    for b, h, w in CONV64_EDGES:
+        args = tail_args(b, h, w, torch.bfloat16, "cuda", seed=h * w + b)
+        _, rel = rel_err(tf.tail_fuse(*args), tf.tail_fuse_plain(*args))
+        worst = max(worst, rel)
+        if rel > BF16_TOL:
+            failures.append(f"bf16 tail at the core's tile edge B={b} {h}x{w}: rel {rel:.3e}")
+    torch.cuda.synchronize()
+    calls = tf.tail_fuse.launches_wgmma - before
+    if calls != len(CONV64_EDGES):
+        failures.append(f"bf16 tail at the tile edges: {calls} calls on the conv core")
+    print(f"bf16 tail at the conv core's {len(CONV64_EDGES)} tile-edge shapes: worst rel err {worst:.3e} "
+          f"(tol {BF16_TOL}); calls on the core {calls}", flush=True)
+    for dtype, cout, tol in ((torch.float32, 3, F32_TOL), (torch.bfloat16, 12, BF16_TOL)):
+        args = tail_args(2, 17, 65, dtype, "cuda", seed=cout, cout=cout)
+        before = tf.tail_fuse.launches, tf.tail_fuse.launches_wgmma
+        _check(f"{str(dtype)[6:]:4s} tail_fuse.cu cout={cout} B=2 17x65", tf.tail_fuse(*args),
+               tf.tail_fuse_plain(*args), tol, failures)
+        counted = tf.tail_fuse.launches - before[0], tf.tail_fuse.launches_wgmma - before[1]
+        if counted != (1, 0):
+            failures.append(f"{dtype} tail with cout={cout}: counters {counted}, expected (+1, +0)")
 
 
 def _core_edges(failures):

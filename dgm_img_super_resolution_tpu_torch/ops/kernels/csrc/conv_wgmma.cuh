@@ -49,6 +49,11 @@
 //   warpgroup; conflict-free), then one TMA store of 64 pixels x 128 B,
 //   which clips the pixels and rows outside the image (ragged W and H).
 //   The store's read of the staging row overlaps the next tile's MMAs.
+// - Hooks that store for themselves (Epi::STORES, the tail's 1x1 down to a
+//   few channels, which makes no TMA box): the hook reduces the sums in
+//   registers and writes its pixels with plain stores; the staging row, its
+//   TMA store and the wait for it are left out. The other hooks compile as
+//   before.
 // - Residuals: a hook may add one or two tensors of the output's shape at
 //   the output pixel (Epi::NRES). They come in by TMA loads of the output
 //   store's box: the first into the staging row itself, the second into a
@@ -69,6 +74,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -227,14 +234,23 @@ __device__ __forceinline__ void stage_row(const Epi& epi, const typename Epi::Re
 //                      uint32_t r0, uint32_t r1) const`,
 // which maps the conv's f32 sums of channels (n0 + 8 n + 2 t, + 1) at pixel
 // (b, y, x), and the residuals' packed bf16 pairs there (0 past NRES), to the
-// packed bf16 pair stored there.
+// packed bf16 pair stored there. A hook with `static constexpr bool STORES =
+// true` (and NRES 0) has instead
+// `void store(const Regs&, const float (&acc)[32], int b, int y, int x0, int H, int W) const`,
+// called by every thread of the warpgroup with its accumulator of output row
+// y, pixels x0 .. x0 + 63 (H, W the image's), which writes them itself.
+template <class Epi, class = void> struct stores_self : std::false_type {};
+template <class Epi> struct stores_self<Epi, std::void_t<decltype(Epi::STORES)>> : std::bool_constant<Epi::STORES> {};
+
 template <bool REFLECT, class Epi>
 __global__ void __launch_bounds__(NT, 1)
     conv_wgmma_kernel(const __grid_constant__ CUtensorMap tin, const __grid_constant__ CUtensorMap tw,
                       const __grid_constant__ CUtensorMap tout, const __grid_constant__ CUtensorMap tres0,
                       const __grid_constant__ CUtensorMap tres1, const Epi epi, int B, int H, int W) {
   constexpr int NRES = Epi::NRES;
+  constexpr bool SELF = stores_self<Epi>::value;
   static_assert(NRES >= 0 && NRES <= 2, "a hook reads at most two residuals");
+  static_assert(!SELF || NRES == 0, "a hook that stores for itself reads no residual");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bar_w, full[STAGES], empty[STAGES], bar_res[TH];
   const uint32_t base = smem_addr(smem_raw);
@@ -327,29 +343,34 @@ __global__ void __launch_bounds__(NT, 1)
   };
 
   // Release tile j's stage (its products are done), run its epilogue into
-  // the staging row and store it; then load tile j + 1's residuals into the
-  // staging rows and tile j + STAGES into the stage.
+  // the staging row and store it (or let the hook store it); then load tile
+  // j + 1's residuals into the staging rows and tile j + STAGES into the
+  // stage.
   auto finish = [&](int j, const float(&acc)[32]) {
     mbar_arrive(&empty[j % STAGES]);
     int b, y0, x0;
     const bool real = coords(j, b, y0, x0);
-    if constexpr (NRES > 0) {
-      mbar_wait(&bar_res[wg], j & 1);  // loaded after the previous store was done reading the staging row
+    if constexpr (SELF) {
+      if (real) epi.store(regs, acc, b, y0 + wg, x0, H, W);
     } else {
-      if (leader) bulk_wait_read<0>();  // the previous store is done reading the staging row
+      if constexpr (NRES > 0) {
+        mbar_wait(&bar_res[wg], j & 1);  // loaded after the previous store was done reading the staging row
+      } else {
+        if (leader) bulk_wait_read<0>();  // the previous store is done reading the staging row
+        named_sync(BAR_OUT + wg, 128);
+      }
+      stage_row(epi, regs, acc, out, res1, b, y0 + wg, x0);
+      fence_async_smem();
       named_sync(BAR_OUT + wg, 128);
-    }
-    stage_row(epi, regs, acc, out, res1, b, y0 + wg, x0);
-    fence_async_smem();
-    named_sync(BAR_OUT + wg, 128);
-    if (leader && real) {
-      tma_store(&tout, out, 0, x0, y0 + wg, b);
-      bulk_commit();
-    }
-    if constexpr (NRES > 0) {
-      if (leader && j + 1 < n) {
-        bulk_wait_read<0>();
-        load_res(j + 1);
+      if (leader && real) {
+        tma_store(&tout, out, 0, x0, y0 + wg, b);
+        bulk_commit();
+      }
+      if constexpr (NRES > 0) {
+        if (leader && j + 1 < n) {
+          bulk_wait_read<0>();
+          load_res(j + 1);
+        }
       }
     }
     if (loader && j + STAGES < n) load(j + STAGES);
@@ -426,7 +447,7 @@ int launch_conv_wgmma(const void* x, const void* w, void* out, const Epi& epi, i
   CUtensorMap tin, tw, tout, tres0, tres1;
   int rc = make_map(&tin, x, B, H, W, HW, HH);
   if (!rc) rc = make_map(&tw, w, 1, 9, C, C, 1);  // the weights as (C_in, C_out, 9 taps, 1)
-  if (!rc) rc = make_map(&tout, out, B, H, W, TM, 1);
+  if (!rc) rc = make_map(&tout, stores_self<Epi>::value ? x : out, B, H, W, TM, 1);  // a self-storing hook's is unused
   if (!rc) rc = make_map(&tres0, Epi::NRES > 0 ? res0 : out, B, H, W, TM, 1);
   if (!rc) rc = make_map(&tres1, Epi::NRES > 1 ? res1 : out, B, H, W, TM, 1);
   if (rc) return rc;

@@ -23,9 +23,10 @@ backward algorithms differ.
 import pytest
 import torch
 
-from chip_smoke import CONFIGS, CONV64_EDGES, CORE_REGIONS, GRAD_TOL, WIDE_CORE_WIDTHS, Regions, backward_inputs
-from chip_smoke import chain_inputs
-from chip_smoke import _counters, core_edge_args, flash_inputs, forward_launches, grad_errors, switches, unet_grads
+from chip_smoke import CONFIGS, CONV64_EDGES, CORE_REGIONS, GRAD_TOL, SERVE_LAUNCHES, WIDE_CORE_WIDTHS, Regions
+from chip_smoke import backward_inputs, chain_inputs, tail_args
+from chip_smoke import _counters, _read_counts, _reset_counts, core_edge_args, flash_inputs, forward_launches, grad_errors
+from chip_smoke import switches, unet_grads
 
 pytestmark = pytest.mark.cuda
 
@@ -127,6 +128,28 @@ def test_unet_backward_matches_cpu(kernels, cfg):
     assert not bad, (bad[:5], worst)
 
 
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+def test_unet_bf16_forward_launch_counts(kernels, cfg):
+    """One bf16 UNet call of the hidden-64 model under each configuration
+    launches a twentieth of the ddim20 serve's kernels
+    (``chip_smoke.SERVE_LAUNCHES``), the calls on the conv core
+    (``<wrapper>_wgmma``, the tail's among them) included."""
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.inference import SRDiffPipeline
+
+    unet = SRDiffPipeline(Hparams(compute_dtype="bfloat16")).model.denoise_fn
+    x, t, cond, _ = backward_inputs()
+    counters = _counters()
+    with switches(**CONFIGS[cfg]), torch.inference_mode():
+        _reset_counts(counters)
+        eps = unet(x.cuda(), t.cuda(), cond.cuda())
+        torch.cuda.synchronize()
+    assert bool(torch.isfinite(eps).all())
+    launched = {k: v for k, v in _read_counts(counters).items() if v}
+    want = {k: v // 20 for k, v in SERVE_LAUNCHES[cfg].items()}
+    assert launched == want
+
+
 # conv3x3 at C = 64 also on every edge of the bf16 kernel's 2-row x 64-pixel
 # tiles (chip_smoke.CONV64_EDGES): W one pixel short of, at and past a tile
 # (and two tiles), H at the reflect minimum, odd and ragged, one image and three
@@ -188,6 +211,52 @@ def test_chain_core_front_pieces(kernels):
         for c in WIDE_CORE_WIDTHS:
             a_pre, _, tv1 = chain_inputs(b, c, h, w, torch.bfloat16, "cuda", seed=c + h)[0][:3]
             assert _rel_err(bc._launch_h1(a_pre, tv1), bc.h1_plain(a_pre, tv1)) <= 3e-2, (c, b, h, w)
+
+
+def test_tail_core_at_tile_edges(kernels):
+    """The bf16 tail on the conv core at each ``CONV64_EDGES`` shape of its
+    input (the ConvT's tiles; the 3x3's at twice that): each call counts one
+    launch and one call on the core, and matches the plain version at the
+    bf16 tolerance."""
+    tail, plain = kernels["tail"]
+    for b, h, w in CONV64_EDGES:
+        args = tail_args(b, h, w, torch.bfloat16, "cuda", seed=h * w + b)
+        before = tail.launches, tail.launches_wgmma
+        got = tail(*args)
+        torch.cuda.synchronize()
+        assert (tail.launches, tail.launches_wgmma) == (before[0] + 1, before[1] + 1)
+        want = plain(*args)
+        assert got.shape == want.shape == (b, 3, 2 * h, 2 * w)
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert _rel_err(got, want) <= 3e-2, (b, h, w)
+
+
+def test_tail_core_launches_alone(kernels):
+    """The core route's two launches alone against their plain pieces at
+    ragged shapes: the ConvT writing y, and the 3x3 + Mish + 1x1 over y (at
+    cout 1, 3, 4, 5 and 8: both widths of the hook's 1x1 weight)."""
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import tail_fuse as tf
+
+    for b, h, w in ((1, 2, 3), (3, 17, 65), (2, 26, 130)):
+        for cout in (1, 3, 4, 5, 8):
+            x, wt, bt, wf, bf, wo, bo = tail_args(b, h, w, torch.bfloat16, "cuda", seed=b + h + w, cout=cout)
+            y = tf._launch_convt(x, wt, bt)
+            assert _rel_err(y, tf.convt_plain(x, wt, bt)) <= 3e-2, (b, h, w)
+            got = tf._launch_conv_mish_1x1(y, wf, bf, wo, bo)
+            assert _rel_err(got, tf.conv_mish_1x1_plain(y, wf, bf, wo, bo)) <= 3e-2, (b, h, w, cout)
+
+
+@pytest.mark.parametrize("dtype,cout,tol", [(torch.float32, 3, 1e-4), (torch.bfloat16, 12, 3e-2)])
+def test_tail_off_the_core_runs_the_tiled_conv(kernels, dtype, cout, tol):
+    """float32, and bf16 with more outputs than the core's hook takes, run
+    ``tail_fuse.cu``: counted in ``launches``, not in ``launches_wgmma``."""
+    tail, plain = kernels["tail"]
+    args = tail_args(2, 17, 65, dtype, "cuda", seed=cout, cout=cout)
+    before = tail.launches, tail.launches_wgmma
+    got = tail(*args)
+    torch.cuda.synchronize()
+    assert (tail.launches, tail.launches_wgmma) == (before[0] + 1, before[1])
+    assert _rel_err(got, plain(*args)) <= tol
 
 
 @pytest.mark.parametrize("c", WIDE_CORE_WIDTHS)
