@@ -80,12 +80,15 @@ class GaussianDiffusion(nn.Module):
 
     # ------------------------------------------------------------- q process
     def q_sample(self, x_start, t, noise):
-        """x_t ~ q(x_t | x_0) at per-batch timesteps ``t`` (all >= 0)."""
+        """x_t ~ q(x_t | x_0) at per-batch timesteps ``t``; where t is -1
+        the result is x_start itself, as in the JAX package."""
         s = self.schedule
         idx = t.cpu().numpy()
-        a = torch.from_numpy(s.sqrt_alphas_cumprod[idx]).to(x_start.device)[:, None, None, None]
-        b = torch.from_numpy(s.sqrt_one_minus_alphas_cumprod[idx]).to(x_start.device)[:, None, None, None]
-        return a * x_start + b * noise
+        tc = np.maximum(idx, 0)
+        a = torch.from_numpy(s.sqrt_alphas_cumprod[tc]).to(x_start.device)[:, None, None, None]
+        b = torch.from_numpy(s.sqrt_one_minus_alphas_cumprod[tc]).to(x_start.device)[:, None, None, None]
+        keep = torch.from_numpy(idx < 0).to(x_start.device)[:, None, None, None]
+        return torch.where(keep, x_start, a * x_start + b * noise)
 
     def predict_start_from_noise(self, x_t, t: int, noise):
         s = self.schedule

@@ -20,8 +20,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("block_chain", "block_chain_wgmma", "chain_wide", "tail_fuse", "tail_fuse_wgmma", "flash_attention",
-           "conv3x3", "conv3x3_wgmma", "group_norm")
+SOURCES = ("block_chain", "block_chain_wgmma", "head_ds_wgmma", "chain_wide", "tail_fuse", "tail_fuse_wgmma",
+           "flash_attention", "conv3x3", "conv3x3_wgmma", "group_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -16,11 +16,16 @@ a_pre made outside, then three conv launches; weights resident at C = 64,
 streamed in 64-channel slices above, ``csrc/conv_wgmma_wide.cuh``). Float32
 at C = 32 and 64 and bfloat16 at C = 32 run ``csrc/block_chain.cu``'s tiled
 conv; float32 from 96 on and bfloat16 at the other multiples of 32 (96,
-160, 224, 288-512) run ``csrc/chain_wide.cu``. The Downsample and head
-convs stay on ``block_chain.cu`` in every dtype. A failed build or launch
+160, 224, 288-512) run ``csrc/chain_wide.cu``. In bf16 the Downsample
+(stride 2, C = 64) and the head over ``[x || skip]`` (C_s in
+``HEAD_CORE_WIDTHS``, writing the chain's h1 and r1 in one launch) run on
+the same core (``csrc/head_ds_wgmma.cu``); float32, and the head at other
+C_s, on ``block_chain.cu``'s streamed conv. A failed build or launch
 raises: no route falls back to another. Each wrapper's ``launches`` counts
-its calls on the card, ``launches_wgmma`` those whose chain ran on the core;
-``block_chain3.launches_by_shape`` counts its calls by (C, H, W).
+its calls on the card, ``launches_wgmma`` those whose chain ran on the core,
+``block_chain3_stem_ds.launches_ds_wgmma`` and
+``block_chain3_head.launches_head_wgmma`` those whose Downsample or head
+did; ``block_chain3.launches_by_shape`` counts its calls by (C, H, W).
 Tensors are NCHW-shaped; on the card activations must be ``channels_last``
 so that the kernels see NHWC memory.
 """
@@ -82,27 +87,46 @@ def block_chain3_stem_plain(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd,
     return block_chain3_plain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
 
 
+def ds_plain(out, wds, bds):
+    """Down stage 0's Downsample: reflect 3x3 conv at stride 2, rounded once
+    (the Downsample launch on the core's route)."""
+    return reflect_conv3x3(out, wds, bds, stride=2)
+
+
 def block_chain3_stem_ds_plain(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond, wds, bds):
     """Plain composition (``block_chain3_stem_ds_reference``): the stem
     chain, then down stage 0's Downsample (reflect 3x3, stride 2) on its
     output. Returns ``(out, ds_out)``."""
     out = block_chain3_stem_plain(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
-    return out, reflect_conv3x3(out, wds, bds, stride=2)
+    return out, ds_plain(out, wds, bds)
 
 
-def block_chain3_head_plain(x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd):
-    """Plain composition (``block_chain3_head_reference``): the head reflect
-    3x3 conv and 1x1 residual conv over ``[x || skip]``, each computed as its
-    x part plus its skip part, rounded where the reference rounds; then the
-    chain."""
+def head_plain(x, skip, wa, ba, wr, br):
+    """The head over ``[x || skip]``: (a_pre, r1), the reflect 3x3 conv and
+    the 1x1 residual conv each computed as its x part plus its skip part,
+    rounded where the reference rounds."""
     dt, cs = x.dtype, x.shape[1]
     a_pre = reflect_conv3x3(x, wa[:, :cs], ba) + reflect_conv3x3(skip, wa[:, cs:])
     r1 = F.conv2d(x, wr[:, :cs].to(dt)) + F.conv2d(skip, wr[:, cs:].to(dt)) + _vec(br[None].to(dt))
+    return a_pre, r1
+
+
+def head_h1_plain(x, skip, wa, ba, wr, br, tv1):
+    """(h1, r1) of the head: what the head launch writes on the core's route."""
+    a_pre, r1 = head_plain(x, skip, wa, ba, wr, br)
+    return h1_plain(a_pre, tv1), r1
+
+
+def block_chain3_head_plain(x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd):
+    """Plain composition (``block_chain3_head_reference``): the head's a_pre
+    and r1, then the chain."""
+    a_pre, r1 = head_plain(x, skip, wa, ba, wr, br)
     return block_chain3_plain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd)
 
 
 RESIDENT_WIDTHS = (32, 64)  # chain widths whose weights stay in shared memory (block_chain.cu)
 CORE_WIDTHS = (64, 128, 192, 256)  # bf16 chain widths on the conv core (block_chain_wgmma.cu)
+HEAD_CORE_WIDTHS = (64, 128)  # C_s of the bf16 head on the conv core (head_ds_wgmma.cu)
 
 
 def _on_core(t: torch.Tensor) -> bool:
@@ -297,36 +321,50 @@ def block_chain3_stem_ds(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, co
     :func:`block_chain3_stem_ds_plain`): the arguments of
     :func:`block_chain3_stem`, then ``wds``/``bds``, the (C,C,3,3)/(C,)
     stride-2 conv. Returns ``(out, ds_out)``; H and W must be even. CUDA
-    tensors launch the kernel (the stem's 4 launches and a stride-2 conv
-    launch on ``block_chain.cu``)."""
+    tensors launch the kernel: the stem's 4 launches and a stride-2 conv
+    launch, in bf16 on the conv core (``csrc/head_ds_wgmma.cu``, counted in
+    ``launches_ds_wgmma``), in float32 on ``block_chain.cu``."""
     args = (x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond, wds, bds)
     if K.on_cpu(*args):
         return block_chain3_stem_ds_plain(*args)
     return region(_block_chain3_stem_ds_cuda, block_chain3_stem_ds_plain, *args)
 
 
+def _launch_ds(out, wds, bds):
+    """The Downsample launch over the chain's output: bf16 on the conv core
+    at stride 2 (``csrc/head_ds_wgmma.cu``, weights ``K.conv_taps``),
+    float32 on ``block_chain.cu``'s streamed conv (``stream_taps``)."""
+    b, c, h, w = out.shape
+    dt = out.dtype
+    ds = torch.empty((b, c, h // 2, w // 2), dtype=dt, device=out.device, memory_format=torch.channels_last)
+    if dt == torch.bfloat16:
+        wds_k, fn = K.conv_taps(wds, dt), function("head_ds_wgmma", "dgmsr_ds_wgmma", 4, 3)
+    else:
+        wds_k, fn = stream_taps(wds, dt), function("block_chain", "dgmsr_stem_ds", 4, 3)
+    rc = fn(K.dtype_code(out), out.data_ptr(), wds_k.data_ptr(), K.f32(bds, dt).data_ptr(), ds.data_ptr(), b, h, w,
+            K.stream_ptr())
+    K.raise_on_error(rc, "block_chain3_stem_ds (Downsample)")
+    return ds
+
+
 def _block_chain3_stem_ds_cuda(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond, wds, bds):
-    b, _, h, w = x.shape
+    _, _, h, w = x.shape
     if h % 2 or w % 2:
         raise ValueError(f"the Downsample fold needs even H, W, got {h}x{w}")
     c = wa.shape[0]
     K.check_param("wds", wds, (c, c, 3, 3))
     K.check_param("bds", bds, (c,))
     out, core = _stem_chain(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
-    dt = x.dtype
-    ds = torch.empty((b, c, h // 2, w // 2), dtype=dt, device=x.device, memory_format=torch.channels_last)
-    wds_k, bds_k = stream_taps(wds, dt), K.f32(bds, dt)
-    fn = function("block_chain", "dgmsr_stem_ds", 4, 3)
-    rc = fn(K.dtype_code(x), out.data_ptr(), wds_k.data_ptr(), bds_k.data_ptr(), ds.data_ptr(), b, h, w,
-            K.stream_ptr())
-    K.raise_on_error(rc, "block_chain3_stem_ds (Downsample)")
+    ds = _launch_ds(out, wds, bds)
     block_chain3_stem_ds.launches += 1
     block_chain3_stem_ds.launches_wgmma += core
+    block_chain3_stem_ds.launches_ds_wgmma += x.dtype == torch.bfloat16
     return out, ds
 
 
 block_chain3_stem_ds.launches = 0
 block_chain3_stem_ds.launches_wgmma = 0
+block_chain3_stem_ds.launches_ds_wgmma = 0
 
 
 def block_chain3_head(x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd):
@@ -334,18 +372,44 @@ def block_chain3_head(x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd)
     :func:`block_chain3_head_plain`). ``x``/``skip``: (B,C_s,H,W), the
     upsampled activation and the down path's skip; ``wa``/``ba``:
     (C,2C_s,3,3)/(C,) head conv; ``wr``/``br``: (C,2C_s,1,1)/(C,) residual
-    conv; the rest as :func:`block_chain3`. CUDA tensors launch the kernel
-    (two head launches, then the chain as :func:`block_chain3` launches it);
-    C_s must be a multiple of 64."""
+    conv; the rest as :func:`block_chain3`; C_s must be a multiple of 64.
+    CUDA tensors launch the kernel: in bf16 at C_s in ``HEAD_CORE_WIDTHS``
+    one head launch on the conv core writing h1 and r1
+    (``csrc/head_ds_wgmma.cu``, counted in ``launches_head_wgmma``), then
+    the chain's three core launches; otherwise two head launches on
+    ``block_chain.cu`` writing a_pre and r1, then the chain as
+    :func:`block_chain3` launches it."""
     args = (x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd)
     if K.on_cpu(*args):
         return block_chain3_head_plain(*args)
     return region(_block_chain3_head_cuda, block_chain3_head_plain, *args)
 
 
+def _launch_head(x, skip, wa, ba, wr, br, tv1=None):
+    """The head's launches: (h1, r1) from one launch on the conv core
+    (``tv1`` given: bf16, C_s in ``HEAD_CORE_WIDTHS``), else (a_pre, r1) from
+    ``block_chain.cu``'s two streamed convs."""
+    dt = x.dtype
+    b, cs, h, w = x.shape
+    c = wa.shape[0]
+    first = torch.empty((b, c, h, w), dtype=dt, device=x.device, memory_format=torch.channels_last)
+    r1 = torch.empty_like(first)
+    if tv1 is not None:
+        K.check_param("tv1", tv1, (b, c))
+        args = [K.conv_taps(wa, dt), K.f32(ba, dt), wr[:, :, 0, 0].to(dt).contiguous(), K.f32(br, dt), K.f32(tv1, dt)]
+        fn = function("head_ds_wgmma", "dgmsr_head_wgmma", 9, 4)
+    else:
+        args = [stream_taps(wa, dt), K.f32(ba, dt), stream_taps(wr, dt), K.f32(br, dt)]
+        fn = function("block_chain", "dgmsr_head", 8, 4)
+    rc = fn(K.dtype_code(x), x.data_ptr(), skip.data_ptr(), *(t.data_ptr() for t in args), first.data_ptr(),
+            r1.data_ptr(), cs, b, h, w, K.stream_ptr())
+    K.raise_on_error(rc, "block_chain3_head (head)")
+    return first, r1
+
+
 def _block_chain3_head_cuda(x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd):
     dt = x.dtype
-    code = K.dtype_code(x)
+    K.dtype_code(x)
     b, cs, h, w = x.shape
     c = wa.shape[0]
     K.check_width(c, h, w)
@@ -357,18 +421,20 @@ def _block_chain3_head_cuda(x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, w
     K.check_param("wr", wr, (c, 2 * cs, 1, 1))
     for name, t in (("ba", ba), ("br", br)):
         K.check_param(name, t, (c,))
-    a_pre = torch.empty((b, c, h, w), dtype=dt, device=x.device, memory_format=torch.channels_last)
-    r1 = torch.empty_like(a_pre)
-    args = [stream_taps(wa, dt), K.f32(ba, dt), stream_taps(wr, dt), K.f32(br, dt)]
-    fn = function("block_chain", "dgmsr_head", 8, 4)
-    rc = fn(code, x.data_ptr(), skip.data_ptr(), *(t.data_ptr() for t in args), a_pre.data_ptr(), r1.data_ptr(),
-            cs, b, h, w, K.stream_ptr())
-    K.raise_on_error(rc, "block_chain3_head (head)")
-    out, core = _chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, None)
+    head_core = dt == torch.bfloat16 and cs in HEAD_CORE_WIDTHS
+    if head_core:
+        h1, r1 = _launch_head(x, skip, wa, ba, wr, br, tv1)
+        _check_chain(h1, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, None)
+        out, core = _launch_chain_core(h1, r1, tv2, wb, bb, wc, bc, wd, bd, None), True
+    else:
+        a_pre, r1 = _launch_head(x, skip, wa, ba, wr, br)
+        out, core = _chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, None)
     block_chain3_head.launches += 1
     block_chain3_head.launches_wgmma += core
+    block_chain3_head.launches_head_wgmma += head_core
     return out
 
 
 block_chain3_head.launches = 0
 block_chain3_head.launches_wgmma = 0
+block_chain3_head.launches_head_wgmma = 0

@@ -21,7 +21,9 @@
 // for the Downsample fold and the head.
 // Here in float32, and the chain at C = 32 in bf16: in bf16 at C = 64 the stem
 // and the chain run on the warpgroup-MMA conv core (block_chain_wgmma.cu),
-// and the Downsample and head convs below serve both dtypes.
+// and so do the Downsample and the head at C_s = 64, 128 (head_ds_wgmma.cu);
+// the Downsample and head convs below serve float32 and the bf16 head at
+// other C_s.
 //
 // Design: a region is a few launches of one tiled conv kernel (conv_tile.cuh:
 // mma.sync bf16 tensor-core implicit GEMM or f32 FMAs, weights resident in

@@ -6,13 +6,12 @@
 // Replaces, for bfloat16 at those widths, the chain part of
 // dgm_img_super_resolution_tpu/ops/pallas/block_chain.py:
 //   _block_chain3_stem_pallas (down stage 0, C = 64; with has_ds the
-//                              Downsample follows, on block_chain.cu's
-//                              streamed conv)
+//                              Downsample follows, on head_ds_wgmma.cu)
 //   _block_chain3_pallas      (the chain from h1 on: packed at C = 64, its
 //                              unpacked wide mode, block_chain.py:323-330,
 //                              at 128-256)
-//   _block_chain3_head_pallas (the chain behind the head, C = 64, whose two
-//                              convs stay on block_chain.cu's streamed conv)
+//   _block_chain3_head_pallas (the chain behind the head, C = 64; the head
+//                              launch of head_ds_wgmma.cu writes its h1, r1)
 // as their *_reference compositions define it, rounding where they round:
 //   h1  = rnd(mish(a_pre) + tv1),  a_pre = rnd(conv_a(x) + ba)
 //   y1  = rnd(rnd(mish(rnd(conv_b(h1) + bb))) + r1),  r1 = rnd(x . wr + br)
@@ -22,8 +21,9 @@
 // block_chain.cu / chain_wide.cu: routing by dtype and width, in
 // ops/kernels/block_chain.py.
 //
-// Launches: the stem (stem_h1_kernel: conv_a, the 1x1 residual and h1) or,
-// where a_pre comes from outside the chain, the h1 pass (h1_kernel); then
+// Launches: the stem (stem_h1_kernel: conv_a, the 1x1 residual and h1), the
+// head (head_ds_wgmma.cu, writing h1 and r1) or, where a_pre comes from
+// outside the chain, the h1 pass (h1_kernel); then
 // conv_b, conv_c and conv_d, each one launch of the conv core with its
 // epilogue hook (Y1, H2, Out): 4 launches, all of them writing through device
 // memory. So the core needs no input prologue: TMA reads h1 as it is.

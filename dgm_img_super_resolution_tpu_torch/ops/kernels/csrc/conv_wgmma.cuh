@@ -410,13 +410,16 @@ __global__ void __launch_bounds__(NT, 1)
 }
 
 // NHWC bf16 (c, W, H, B) as a 4-D map with a box of 64 channels (one
-// 128-byte swizzle row) x box_w x box_h x 1, zeros outside.
-inline int make_map(CUtensorMap* map, const void* p, int B, int H, int W, int box_w, int box_h, int c = C) {
+// 128-byte swizzle row) x box_w x box_h x 1, zeros outside. With step > 1
+// the map sees every step-th pixel of a row from p (W / step of them): one
+// column phase, as the stride-2 Downsample (head_ds_wgmma.cu) reads it.
+inline int make_map(CUtensorMap* map, const void* p, int B, int H, int W, int box_w, int box_h, int c = C,
+                    int step = 1) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return (int)cudaErrorNotSupported;
   const cuuint64_t pix = 2ull * c;
-  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {pix, (cuuint64_t)W * pix, (cuuint64_t)H * W * pix};
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)(W / step), (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {pix * step, (cuuint64_t)W * pix, (cuuint64_t)H * W * pix};
   const cuuint32_t box[4] = {(cuuint32_t)C, (cuuint32_t)box_w, (cuuint32_t)box_h, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box, elem,

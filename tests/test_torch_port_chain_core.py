@@ -211,8 +211,9 @@ def test_core_route_matches_jax_stem_reference(c, h, w, with_cond):
 @pytest.mark.parametrize("with_cond", [False, True])
 def test_core_route_matches_jax_stem_ds_reference(c, h, w, with_cond):
     """The Downsample fold on the core's route: the chain from the pieces,
-    then the stride-2 reflect conv over its output (block_chain.cu's
-    streamed conv on the card)."""
+    then the stride-2 reflect conv over its output (on the card the conv
+    core's stride-2 launch in bf16, block_chain.cu's streamed conv in
+    float32)."""
     rng = np.random.default_rng(10 * c + h + w + with_cond)
     args = _stem_inputs(rng, 2, c, h, w, with_cond, with_ds=True)
     ref_out, ref_ds = block_chain3_stem_ds_reference(*_jax_args(*args))
@@ -255,14 +256,16 @@ OLD_STEM = ("block_chain", "dgmsr_stem_head")
 OLD_CHAIN = ("block_chain", "dgmsr_block_chain3")
 DS = ("block_chain", "dgmsr_stem_ds")
 HEAD = ("block_chain", "dgmsr_head")
+DS_CORE = ("head_ds_wgmma", "dgmsr_ds_wgmma")
+HEAD_CORE = ("head_ds_wgmma", "dgmsr_head_wgmma")
 WIDE = ("chain_wide", "dgmsr_chain_wide")
 
 ROUTES = [  # (wrapper, dtype, width, the C functions called in order)
     ("block_chain3_stem", torch.bfloat16, 64, [STEM, CORE]),
     ("block_chain3_stem", torch.float32, 64, [OLD_STEM, OLD_CHAIN]),
-    ("block_chain3_stem_ds", torch.bfloat16, 64, [STEM, CORE, DS]),
+    ("block_chain3_stem_ds", torch.bfloat16, 64, [STEM, CORE, DS_CORE]),
     ("block_chain3_stem_ds", torch.float32, 64, [OLD_STEM, OLD_CHAIN, DS]),
-    ("block_chain3_head", torch.bfloat16, 64, [HEAD, H1, CORE]),
+    ("block_chain3_head", torch.bfloat16, 64, [HEAD_CORE, CORE]),
     ("block_chain3_head", torch.float32, 64, [HEAD, OLD_CHAIN]),
     ("block_chain3", torch.bfloat16, 64, [H1, CORE]),
     ("block_chain3", torch.float32, 64, [OLD_CHAIN]),
@@ -288,7 +291,8 @@ def _args(name, dtype, c):
 @pytest.mark.parametrize("name,dtype,c,want", ROUTES)
 def test_each_dtype_and_width_reaches_one_chain_kernel(monkeypatch, name, dtype, c, want):
     """bf16 at C = 64, 128, 192 and 256 runs the conv core, h1 coming from
-    the stem launch or the h1 pass, and counts in ``launches_wgmma``;
+    the stem launch, the head launch (``head_ds_wgmma.cu``, which also runs
+    the bf16 Downsample) or the h1 pass, and counts in ``launches_wgmma``;
     float32 and C = 32 reach ``block_chain.cu``, float32 from C = 96 on and
     bf16 at the other wide widths ``chain_wide.cu``. On the core's route the
     chain reads the h1 and r1 the launch before wrote, and conv_c writes h2
@@ -308,6 +312,8 @@ def test_each_dtype_and_width_reaches_one_chain_kernel(monkeypatch, name, dtype,
         chain = args["dgmsr_chain3_wgmma"]
         if "dgmsr_stem_h1" in args:
             assert chain[1:3] == args["dgmsr_stem_h1"][7:9]  # h1, r1
+        elif "dgmsr_head_wgmma" in args:
+            assert chain[1:3] == args["dgmsr_head_wgmma"][8:10]
         else:
             assert chain[1] == args["dgmsr_h1"][3]
             assert args["dgmsr_h1"][4:8] == (c, *first.shape[:1], *first.shape[2:])
@@ -317,7 +323,7 @@ def test_each_dtype_and_width_reaches_one_chain_kernel(monkeypatch, name, dtype,
 
 WRAPPERS = ["block_chain3_stem", "block_chain3_stem_ds", "block_chain3_head", "block_chain3"]
 PLAINS = ["block_chain3_plain", "block_chain3_stem_plain", "block_chain3_stem_ds_plain", "block_chain3_head_plain",
-          "chain_from_h1_plain", "h1_plain", "stem_plain", "stem_h1_plain"]
+          "chain_from_h1_plain", "h1_plain", "stem_plain", "stem_h1_plain", "head_plain", "head_h1_plain", "ds_plain"]
 
 
 @pytest.mark.parametrize("name", WRAPPERS)

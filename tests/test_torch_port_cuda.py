@@ -24,7 +24,8 @@ import pytest
 import torch
 
 from chip_smoke import CONFIGS, CONV64_EDGES, CORE_REGIONS, GRAD_TOL, SERVE_LAUNCHES, WIDE_CORE_WIDTHS, Regions
-from chip_smoke import backward_inputs, chain_inputs, tail_args
+from chip_smoke import CUDNN_ENV, FWD_F32_RATIO_MAX, FWD_F32_RATIO_MEAN, FWD_MAX_REL, FWD_MEAN_REL
+from chip_smoke import backward_inputs, chain_inputs, head_piece_args, tail_args
 from chip_smoke import _counters, _read_counts, _reset_counts, core_edge_args, flash_inputs, forward_launches, grad_errors
 from chip_smoke import switches, unet_grads
 
@@ -148,6 +149,89 @@ def test_unet_bf16_forward_launch_counts(kernels, cfg):
     launched = {k: v for k, v in _read_counts(counters).items() if v}
     want = {k: v // 20 for k, v in SERVE_LAUNCHES[cfg].items()}
     assert launched == want
+
+
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+def test_unet_bf16_forward_matches_cudnn_and_float32(kernels, cfg):
+    """The served bf16 path end to end: one bf16 UNet call of the hidden-64
+    model under each configuration against the same weights' bf16 call with
+    every region off (cuDNN throughout) and their float32 call (TF32 off),
+    within chip_smoke's bounds (``FWD_MAX_REL``, ``FWD_MEAN_REL``, and at
+    most ``FWD_F32_RATIO_MAX`` / ``_MEAN`` times as far from float32 as the
+    cuDNN bf16 call; the reasons are there)."""
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.inference import SRDiffPipeline
+
+    pipe = SRDiffPipeline(Hparams(compute_dtype="bfloat16"))
+    f32 = SRDiffPipeline(Hparams(compute_dtype="float32"), params=pipe.model.state_dict())
+    x, t, cond, _ = backward_inputs()
+    x, t, cond = x.cuda(), t.cuda(), cond.cuda()
+
+    def eps(p, env):
+        with switches(**env), torch.inference_mode():
+            return p.model.denoise_fn(x, t, cond).float()
+
+    def dist(a, b):
+        d = (a - b).abs()
+        return (d.max() / b.abs().max()).item(), (d.mean() / b.abs().mean()).item()
+
+    ref32, ref16 = eps(f32, CUDNN_ENV), eps(pipe, CUDNN_ENV)
+    base = dist(ref16, ref32)
+    got = eps(pipe, CONFIGS[cfg])
+    assert bool(torch.isfinite(got).all())
+    vs16, vs32 = dist(got, ref16), dist(got, ref32)
+    assert vs16[0] <= FWD_MAX_REL and vs16[1] <= FWD_MEAN_REL, vs16
+    assert vs32[0] <= FWD_MAX_REL and vs32[1] <= FWD_MEAN_REL, vs32
+    assert vs32[0] <= FWD_F32_RATIO_MAX * base[0] and vs32[1] <= FWD_F32_RATIO_MEAN * base[1], (vs32, base)
+
+
+def test_head_and_ds_launches_at_tile_edges(kernels):
+    """The bf16 head launch (C_s = 64 and 128) writing (h1, r1), and the
+    bf16 Downsample launch, alone against their plain pieces: the head at
+    each ``CONV64_EDGES`` shape (odd and even H, W), the Downsample where
+    its output has that shape (its input at twice it)."""
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import block_chain as bc
+
+    for b, h, w in CONV64_EDGES:
+        for cs in bc.HEAD_CORE_WIDTHS:
+            args = head_piece_args(b, cs, h, w, seed=h * w + b + cs)
+            for g, wt in zip(bc._launch_head(*args), bc.head_h1_plain(*args)):
+                assert g.shape == wt.shape and g.is_contiguous(memory_format=torch.channels_last)
+                assert _rel_err(g, wt) <= 3e-2, (cs, b, h, w)
+        gen = torch.Generator().manual_seed(h * w + b)
+        out = torch.randn(b, 64, 2 * h, 2 * w, generator=gen).to("cuda", torch.bfloat16)
+        out = out.contiguous(memory_format=torch.channels_last)
+        wds, bds = (torch.randn(64, 64, 3, 3, generator=gen) / 24).cuda(), (torch.randn(64, generator=gen) * 0.1).cuda()
+        got = bc._launch_ds(out, wds, bds)
+        torch.cuda.synchronize()
+        want = bc.ds_plain(out, wds, bds)
+        assert got.shape == want.shape == (b, 64, h, w) and got.is_contiguous(memory_format=torch.channels_last)
+        assert _rel_err(got, want) <= 3e-2, (b, h, w)
+
+
+def test_head_and_ds_counters(kernels):
+    """bf16 Downsample folds and heads at C_s = 64 and 128 count in
+    ``launches_ds_wgmma`` / ``launches_head_wgmma``; float32 ones, and a
+    bf16 head at C_s = 192, run ``block_chain.cu`` and count there only in
+    ``launches``."""
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import block_chain as bc
+
+    stem_ds, head = bc.block_chain3_stem_ds, bc.block_chain3_head
+    for dtype, core in ((torch.bfloat16, 1), (torch.float32, 0)):
+        r = Regions(2, 34, 130, dtype, "cuda", seed=5)
+        before = stem_ds.launches, stem_ds.launches_ds_wgmma, head.launches, head.launches_head_wgmma
+        stem_ds(*r.stem_ds)
+        head(*r.head)
+        torch.cuda.synchronize()
+        got = stem_ds.launches, stem_ds.launches_ds_wgmma, head.launches, head.launches_head_wgmma
+        assert got == (before[0] + 1, before[1] + core, before[2] + 1, before[3] + core)
+    args = head_piece_args(2, 192, 9, 70, seed=192)
+    r = Regions(2, 18, 140, torch.bfloat16, "cuda", seed=6)
+    before = head.launches, head.launches_head_wgmma
+    got = head(*args[:6], *r.head[6:])
+    torch.cuda.synchronize()
+    assert (head.launches, head.launches_head_wgmma) == (before[0] + 1, before[1])
+    assert _rel_err(got, bc.block_chain3_head_plain(*args[:6], *r.head[6:])) <= 3e-2
 
 
 # conv3x3 at C = 64 also on every edge of the bf16 kernel's 2-row x 64-pixel
