@@ -216,6 +216,35 @@ WIDE_F32_WIDTHS = (32, 96, 128, 192, 256)  # on a ragged (2, C, 13, 21); 32 is t
 # The bf16 chain widths on the wide core, each also at the conv core's tile
 # edges (CONV64_EDGES), with and without the condition.
 WIDE_CORE_WIDTHS = (128, 192, 256)
+# The serving paths over the HR-pixel budget (default 2,097,152 = 8 x 512^2,
+# ``core/config.py``), at the default configuration: a batch of 9 at 128x128
+# LR is served in sub-batches of 8 (the last one padded to 8 by repeating
+# its final image); one 384x384 LR image (1536^2 HR) goes to feathered tiles
+# of ``infer_patch_size`` with ``infer_patch_overlap``, served as a batch in
+# sub-batches of 8. Each sub-batch is one ddim20 serve: SERVE_LAUNCHES
+# ["default"] each.
+SERVE_LR, BUDGET_BATCH, TILED_LR = 128, 9, 384
+# Encoder propagation on the ddim20 serve, (configuration, K): an encode at
+# the first step of each group of K and at each step of the remainder K
+# does not divide, and a decode at every step. The encode runs down stage
+# 0's region (the stem; under A the stem with the Downsample and its launch
+# on the core), the decode the last up stage's (the chain; under A the
+# head) and the tail.
+ENCPROP_RUNS = (("default", 2), ("default", 3), ("A", 2))
+ENCODE_COUNTERS = {"default": ("block_chain3_stem", "block_chain3_stem_wgmma"),
+                   "A": ("block_chain3_stem_ds", "block_chain3_stem_ds_wgmma", "ds_wgmma")}
+
+
+def encprop_launches(cfg: str, k: int, steps: int = 20) -> dict:
+    """The launches of one encoder-propagation serve of ``steps`` steps."""
+    encodes = steps // k + steps % k
+    return {key: encodes if key in ENCODE_COUNTERS[cfg] else n * steps // 20
+            for key, n in SERVE_LAUNCHES[cfg].items()}
+
+
+# The SD serve's options at LR 256: encoder propagation at K = 2, and a
+# negative prompt (K = 1).
+SD_LR, SD_ENC_INTERVAL, SD_NEGATIVE = 256, 2, "blurry, low quality, jpeg artifacts"
 # The SD path's GroupNorm shapes: a UNet level-0 ResBlock at LR 256 (CFG
 # batch 2) and the VAE decoder's last up block at 1024x1024.
 GN_SHAPES = (((2, 256, 256, 256), 1e-5), ((1, 128, 1024, 1024), 1e-6))
@@ -1025,6 +1054,23 @@ def _serve(pipe, imgs, counters):
     return out, time.perf_counter() - t0, _read_counts(counters)
 
 
+def _uint8_check(label, a, b, failures) -> dict:
+    """The uint8 differences of two serves: mean and 99.9th percentile
+    bounded (``UINT8_*``), the max reported."""
+    import torch
+
+    d = (a.int() - b.int()).abs()
+    hist = torch.bincount(d.flatten().long(), minlength=256).cumsum(0).cpu()
+    p999 = int((hist < 0.999 * d.numel()).sum())
+    mean, top = d.float().mean().item(), int(d.max().item())
+    ok = mean <= UINT8_MEAN_MAX and p999 <= UINT8_P999_MAX
+    print(f"{label}, uint8 output: mean |diff| {mean:.4f} (bound {UINT8_MEAN_MAX}), 99.9th percentile {p999} "
+          f"(bound {UINT8_P999_MAX}), max {top} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"{label}: uint8 mean {mean:.4f}, p99.9 {p999}")
+    return {"mean": mean, "p999": p999, "max": top}
+
+
 def phase_pipeline(rows):
     """Full-width ddim20 serve in bf16 under each configuration of the
     switches; fills the SRDiff rows' ``launches`` from the configuration
@@ -1078,19 +1124,8 @@ def phase_pipeline(rows):
         # the 99.9th percentile of the uint8 differences are bounded
         # (UINT8_MEAN_MAX, UINT8_P999_MAX), the max reported
         for ref in ("default", "cudnn"):
-            if cfg == ref:
-                continue
-            d = (outs[cfg].int() - outs[ref].int()).abs()
-            hist = torch.bincount(d.flatten().long(), minlength=256).cumsum(0).cpu()
-            p999 = int((hist < 0.999 * d.numel()).sum())
-            mean, top = d.float().mean().item(), int(d.max().item())
-            ok = mean <= UINT8_MEAN_MAX and p999 <= UINT8_P999_MAX
-            res[cfg][f"uint8_vs_{ref}"] = {"mean": mean, "p999": p999, "max": top}
-            print(f"config {cfg} vs {ref}, uint8 output: mean |diff| {mean:.4f} (bound {UINT8_MEAN_MAX}), "
-                  f"99.9th percentile {p999} (bound {UINT8_P999_MAX}), max {top} {'ok' if ok else 'FAIL'}",
-                  flush=True)
-            if not ok:
-                failures.append(f"config {cfg} vs {ref}: uint8 mean {mean:.4f}, p99.9 {p999}")
+            if cfg != ref:
+                res[cfg][f"uint8_vs_{ref}"] = _uint8_check(f"config {cfg} vs {ref}", outs[cfg], outs[ref], failures)
     lat = []
     for _ in range(5):
         t1 = time.perf_counter()
@@ -1166,6 +1201,178 @@ def phase_bf16_forward():
             failures.append(f"bf16 UNet forward config {cfg}: launches {launched}, expected {want}")
         res[cfg] = {"vs_cudnn_bf16": vs16, "vs_f32": vs32}
     del pipe, f32
+    torch.cuda.empty_cache()
+    return res, failures
+
+
+def _note_launches(rows, path, launches):
+    """Record a path's launches on the table rows of the kernels it ran
+    (rows 1-5 by name; the wide chain's rows are configuration C's)."""
+    for row in rows:
+        if "shape" not in row and launches.get(row["name"]):
+            row.setdefault("launches_paths", {})[path] = launches[row["name"]]
+
+
+def _timed_serve(pipe, imgs, counters, **kw):
+    """One serve after the counters are set to 0, synchronised; (output,
+    seconds, the non-zero launches)."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_counts(counters)
+    t0 = time.perf_counter()
+    out = pipe.upscale_batch_device(imgs, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, {k: v for k, v in _read_counts(counters).items() if v}
+
+
+def _launch_check(label, launches, want, failures):
+    ok = launches == want
+    print(f"{label}: launches {launches} {'ok' if ok else f'FAIL, expected {want}'}", flush=True)
+    if not ok:
+        failures.append(f"{label}: launches {launches}, expected {want}")
+
+
+def phase_serving_paths(rows):
+    """The SRDiff serving paths of the full-width bf16 ddim20 model beyond
+    one batch of 8: a batch over the HR-pixel budget (sub-batches; chunk 0
+    against the unchunked batch of its images with the same noise; a
+    progress callback), one LR image over it (feathered tiles through
+    ``upscale``), and encoder propagation (``ENCPROP_RUNS``: launches, the
+    uint8 output against the same serve with every region off, img/s beside
+    K = 1's; and float32 card vs CPU)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.diffusion.gaussian import as_noise_hook
+    from dgm_img_super_resolution_tpu_torch.inference import ChunkNoise, SRDiffPipeline
+    from dgm_img_super_resolution_tpu_torch.ops.image import tile_positions
+
+    hp = Hparams(sampler="ddim", sample_timesteps=20, ddim_eta=1.0, compute_dtype="bfloat16")
+    pipe = SRDiffPipeline(hp)
+    counters = _counters()
+    failures, res = [], {}
+    per_batch = SERVE_LAUNCHES["default"]
+
+    # -- a batch over the budget
+    dev, hr = pipe.device, 4 * SERVE_LR
+    budget = int(hp["max_native_hr_pixels"])
+    sub = budget // hr**2
+    chunks = math.ceil(BUDGET_BATCH / sub)
+    imgs = np.random.default_rng(9).integers(0, 256, (BUDGET_BATCH, SERVE_LR, SERVE_LR, 3), dtype=np.uint8)
+    noise = ChunkNoise(lambda path, shape: as_noise_hook(
+        None, shape, dev, torch.Generator(device=dev).manual_seed(100 + sum(path))))
+    print(f"over-budget batch: {BUDGET_BATCH} x {SERVE_LR}^2 -> {hr}^2 under the budget {budget}: sub-batches of {sub}, "
+          f"{chunks} of them; expected launches {{k: {chunks} x v}} of {per_batch}", flush=True)
+    pipe.upscale_batch_device(imgs[:sub])  # warm-up
+    seen = []
+    out, dt, launches = _timed_serve(pipe, imgs, counters, noise=noise,
+                                     progress_cb=lambda done, total: seen.append((done, total)))
+    _launch_check(f"over-budget batch of {BUDGET_BATCH}", launches, {k: chunks * v for k, v in per_batch.items()},
+                  failures)
+    _note_launches(rows, f"batch{BUDGET_BATCH}_over_budget", launches)
+    ok_out = (tuple(out.shape) == (BUDGET_BATCH, hr, hr, 3) and bool(torch.isfinite(out).all())
+              and 0.0 <= float(out.min()) and float(out.max()) <= 1.0)
+    dones = [d for d, _ in seen]
+    ok_progress = (bool(seen) and dones == sorted(dones) and len({t for _, t in seen}) == 1
+                   and seen[-1][0] == seen[-1][1] == chunks * 20)
+    whole0 = pipe.upscale_batch_device(imgs[:sub], noise=noise.fold_in(0).hook((sub, 3, hr, hr)))
+    err0 = (out[:sub] - whole0).abs().max().item()
+    ok0 = err0 <= BF16_TOL
+    print(f"over-budget batch of {BUDGET_BATCH}: {dt:.3f} s ({BUDGET_BATCH / dt:.2f} img/s), output "
+          f"{tuple(out.shape)} {'ok' if ok_out else 'FAIL'}; progress {len(seen)} calls to {seen[-1] if seen else None} "
+          f"{'ok' if ok_progress else 'FAIL'}; chunk 0 vs the unchunked batch of its {sub} images, same noise: "
+          f"max_abs_err {err0:.3e} {'ok' if ok0 else 'FAIL'} (tol {BF16_TOL})", flush=True)
+    failures += [f"over-budget batch: {what}" for what, good in
+                 (("output", ok_out), ("progress", ok_progress), ("chunk 0", ok0)) if not good]
+    res["over_budget"] = {"batch": BUDGET_BATCH, "sub": sub, "chunks": chunks, "s": dt, "img_per_s": BUDGET_BATCH / dt,
+                          "launches": launches, "progress_calls": len(seen), "chunk0_max_abs_err": err0}
+    del out, whole0
+
+    # -- one image over the budget: feathered tiles
+    patch, overlap = int(hp["infer_patch_size"]), int(hp["infer_patch_overlap"])
+    n_tiles = len(tile_positions(TILED_LR, patch, patch - overlap)) ** 2
+    tile_chunks = math.ceil(n_tiles / sub)
+    want = {k: tile_chunks * v for k, v in per_batch.items()}
+    print(f"tiled image: LR {TILED_LR}^2 -> {4 * TILED_LR}^2 ({(4 * TILED_LR) ** 2} HR px > {budget}): "
+          f"{n_tiles} tiles of {patch} overlapping by {overlap}, {tile_chunks} sub-batches of {sub}; "
+          f"expected launches {want}", flush=True)
+    img = np.random.default_rng(10).integers(0, 256, (TILED_LR, TILED_LR, 3), dtype=np.uint8)
+    torch.cuda.synchronize()
+    _reset_counts(counters)
+    t0 = time.perf_counter()
+    sr = pipe.upscale(img)
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in _read_counts(counters).items() if v}
+    _launch_check(f"tiled LR {TILED_LR}^2", launches, want, failures)
+    _note_launches(rows, f"tiled_lr{TILED_LR}", launches)
+    ok = (sr.shape == (4 * TILED_LR, 4 * TILED_LR, 3) and bool(np.isfinite(sr).all())
+          and 0.0 <= float(sr.min()) and float(sr.max()) <= 1.0)
+    print(f"tiled LR {TILED_LR}^2 through upscale: {dt:.3f} s, output {sr.shape} in [{sr.min():.3f}, "
+          f"{sr.max():.3f}] {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"tiled LR {TILED_LR}: output {sr.shape}")
+    res["tiled"] = {"lr": TILED_LR, "tiles": n_tiles, "chunks": tile_chunks, "s": dt, "launches": launches}
+
+    # -- encoder propagation
+    imgs = imgs[:8]
+    outs, times = {}, {}
+    for k in sorted({1} | {k for _, k in ENCPROP_RUNS}):
+        pipe.hp = hp.replace(enc_interval=k)
+        for cfg, env in [("default", {}), ("A", CONFIGS["A"]), ("cudnn", CUDNN_ENV)]:
+            if cfg != "cudnn" and (cfg, k) not in ENCPROP_RUNS and not (cfg == "default" and k == 1):
+                continue
+            with switches(**env):
+                pipe.upscale_batch_device(imgs, as_uint8=True)  # warm-up
+                out, dt, launches = _timed_serve(pipe, imgs, counters, as_uint8=True,
+                                                 generator=torch.Generator(device=dev).manual_seed(0))
+            outs[cfg, k], times[cfg, k] = out, dt
+            if cfg == "cudnn":
+                _launch_check(f"ddim20 enc_interval {k} every region off", launches, {}, failures)
+            elif k > 1:
+                _launch_check(f"ddim20 enc_interval {k} config {cfg}", launches, encprop_launches(cfg, k), failures)
+                _note_launches(rows, f"encprop_k{k}" + ("" if cfg == "default" else f"_{cfg}"), launches)
+                res[f"encprop_{cfg}_k{k}"] = {"img_per_s": 8 / dt, "launches": launches}
+    for cfg, k in ENCPROP_RUNS:
+        res[f"encprop_{cfg}_k{k}"]["uint8_vs_cudnn"] = _uint8_check(
+            f"ddim20 enc_interval {k} config {cfg} vs every region off", outs[cfg, k], outs["cudnn", k], failures)
+        if cfg == "default":  # how far the reuse moves the images from the exact chain: reported, not bounded
+            d = (outs[cfg, k].int() - outs[cfg, 1].int()).abs().float()
+            res[f"encprop_{cfg}_k{k}"]["uint8_vs_k1"] = {"mean": d.mean().item(), "max": int(d.max().item())}
+            print(f"ddim20 enc_interval {k} config {cfg} vs enc_interval 1, uint8 output: mean |diff| "
+                  f"{d.mean().item():.3f}, max {int(d.max().item())} (the reuse's approximation; reported)", flush=True)
+    res["encprop_img_per_s"] = {f"{cfg}_k{k}": 8 / dt for (cfg, k), dt in times.items()}
+    print(f"ddim20 eta 1 bf16 B=8 {SERVE_LR}->{hr}, img/s by enc_interval: "
+          + ", ".join(f"{cfg} K={k} {8 / dt:.2f}" for (cfg, k), dt in sorted(times.items())), flush=True)
+    del pipe, outs
+    torch.cuda.empty_cache()
+
+    # -- float32 card vs CPU at K = 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hp32 = Hparams(sampler="ddim", sample_timesteps=4, ddim_eta=1.0, compute_dtype="float32", enc_interval=2)
+    cpu = SRDiffPipeline(hp32, device="cpu")
+    gpu = SRDiffPipeline(hp32, params=cpu.model.state_dict())
+    g = torch.Generator().manual_seed(3)
+    shape = (2, 3, 128, 128)
+    ts, _ = cpu.model.ddim_timesteps(4)
+    noise32 = (torch.randn(shape, generator=g), {t: torch.randn(shape, generator=g) for t in ts})
+    lr = np.random.default_rng(2).integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
+    ref = cpu.upscale_batch(lr, noise=noise32)
+    for cfg in ("default", "A"):
+        with switches(**CONFIGS[cfg]):
+            got = gpu.upscale_batch(lr, noise=noise32)
+        err = float(np.abs(got - ref).max())
+        ok = err <= E2E_TOL and bool(np.isfinite(got).all())
+        print(f"card vs CPU, f32 hidden64 config {cfg} ddim4 eta 1 enc_interval 2, serve B=2 32->128: max_abs_err "
+              f"{err:.3e} {'ok' if ok else 'FAIL'} (tol {E2E_TOL})", flush=True)
+        if not ok:
+            failures.append(f"card vs CPU encprop {cfg}")
+        res[f"encprop_card_vs_cpu_{cfg}"] = err
+    del cpu, gpu
     torch.cuda.empty_cache()
     return res, failures
 
@@ -1496,7 +1703,7 @@ def phase_group_norm():
     return row, failures
 
 
-def _sd_serve(pipe, lr: int, steps: int):
+def _sd_serve(pipe, lr: int, steps: int, **kw):
     """One timed SD serve of a ``lr``-square uint8 image with every launch
     counter set to 0 just before it; (output, seconds, launches)."""
     import numpy as np
@@ -1508,7 +1715,7 @@ def _sd_serve(pipe, lr: int, steps: int):
     _reset_counts(counters)
     t0 = time.perf_counter()
     out = pipe.upscale_device(SD_PROMPT, img, num_inference_steps=steps, guidance_scale=9.0,
-                              noise_level=20, eta=0.0)
+                              noise_level=20, eta=0.0, **kw)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     return out, dt, _read_counts(counters)
@@ -1559,6 +1766,69 @@ def phase_sd_serve(rows):
               f"launches {launches}, out mean {r['out_mean']:.4f} std {r['out_std']:.4f}"
               + ("" if shape_ok and finite and in_range else " FAIL"), flush=True)
     print(f"SD pipeline init (published widths, random weights on the card): {init_s:.2f} s", flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+    return res, failures
+
+
+def sd_flash_per_call(unet, lr: int) -> tuple[int, int]:
+    """The flash launches of one SD UNet call at LR ``lr``, (down path,
+    mid block and up path), from the block layout: a Transformer2D whose
+    first attention attends to itself (not ``only_cross``) at a level of at
+    least ``FLASH_MIN_TOKENS`` tokens (the latent is the LR size, halved
+    per level) launches the kernel once."""
+    from dgm_img_super_resolution_tpu_torch.models.sd.attention import FLASH_MIN_TOKENS
+
+    def count(blocks, level):
+        return sum(1 for t in blocks if not t.transformer_blocks[0].only_cross
+                   and (lr >> level) ** 2 >= FLASH_MIN_TOKENS)
+
+    n = len(unet.down_blocks)
+    down = sum(count(b.attentions or [], i) for i, b in enumerate(unet.down_blocks))
+    up = count(unet.mid_block.attentions, n - 1) + sum(count(b.attentions or [], n - 1 - i)
+                                                      for i, b in enumerate(unet.up_blocks))
+    return down, up
+
+
+def phase_sd_options(rows):
+    """The SD x4 serve at LR 256 (published widths, bf16, DDIM 20 eta 0,
+    guidance 9) with encoder propagation (``SD_ENC_INTERVAL``) and with a
+    negative prompt, beside the plain serve: flash launches against the
+    block layout's count, shape, finite, range and seconds."""
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.models.sd.pipeline import StableDiffusionUpscalePipeline
+
+    pipe = StableDiffusionUpscalePipeline(seed=0)
+    lr, steps, k = SD_LR, 20, SD_ENC_INTERVAL
+    enc, dec = sd_flash_per_call(pipe.unet, lr)
+    groups = steps // k
+    runs = {"plain": ({}, steps * (enc + dec)),
+            f"enc_interval{k}": ({"enc_interval": k}, (groups + steps % k) * enc + steps * dec),
+            "negative_prompt": ({"negative_prompt": SD_NEGATIVE}, steps * (enc + dec))}
+    print(f"SD LR {lr}: flash launches per UNet call {enc} in the down path, {dec} in the mid block and up path; "
+          f"expected a serve: " + ", ".join(f"{name} {n}" for name, (_, n) in runs.items()), flush=True)
+    _sd_serve(pipe, lr, 2)  # warm-up
+    failures, res = [], {}
+    for name, (kw, want_flash) in runs.items():
+        out, dt, launches = _sd_serve(pipe, lr, steps, **kw)
+        shape_ok = tuple(out.shape) == (1, 4 * lr, 4 * lr, 3) and out.is_cuda
+        finite = bool(torch.isfinite(out).all())
+        in_range = bool(((out >= 0) & (out <= 1)).all())
+        want = {key: 0 for key in launches}
+        want["flash_attention"] = want_flash
+        ok = shape_ok and finite and in_range and launches == want
+        if not ok:
+            failures.append(f"SD LR {lr} {name}: output {tuple(out.shape)} finite {finite} in [0, 1] {in_range}, "
+                            f"launches {launches}, expected {want}")
+        res[name] = {"wall_s": dt, "flash_launches": launches["flash_attention"], "out_mean": float(out.mean())}
+        if name != "plain":
+            for row in rows:
+                if row["name"] == "flash_attention":
+                    row.setdefault("launches_paths", {})[f"sd_lr{lr}_{name}"] = launches["flash_attention"]
+        print(f"SD x4 ddim{steps} eta 0 cfg 9 bf16 LR {lr} {name} {kw}: {dt:.3f} s (plain "
+              f"{res['plain']['wall_s']:.3f} s), flash launches {launches['flash_attention']} (expected {want_flash}), "
+              f"out mean {res[name]['out_mean']:.4f} {'ok' if ok else 'FAIL'}", flush=True)
     del pipe
     torch.cuda.empty_cache()
     return res, failures
@@ -1649,6 +1919,7 @@ def main() -> int:
     phase_build(args.out)
     rows, failures = phase_kernels()
     pipe, f3 = phase_pipeline(rows)
+    paths, f3c = phase_serving_paths(rows)
     fwd16, f3b = phase_bf16_forward()
     e2e, f4 = phase_card_vs_cpu()
     bwd, f4b = phase_backward()
@@ -1656,16 +1927,18 @@ def main() -> int:
     gn_row, f6 = phase_group_norm()
     rows += [flash_row, gn_row]
     sd, f7 = phase_sd_serve([flash_row, gn_row])
+    sd_opts, f7b = phase_sd_options(rows)
     sd_e2e, f8 = phase_sd_card_vs_cpu()
-    failures += f3 + f3b + f4 + f4b + f5 + f6 + f7 + f8
+    failures += f3 + f3c + f3b + f4 + f4b + f5 + f6 + f7 + f7b + f8
     missing = [row["name"] for row in rows if row["launches"] is None]
     if missing:
         failures.append(f"no launch count for {missing}")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if args.out:
         (args.out / "chip_smoke.json").write_text(json.dumps(
-            {"card": card, "kernels": rows, "pipeline": pipe, "bf16_forward": fwd16, "card_vs_cpu": e2e,
-             "backward": bwd, "sd": sd, "sd_card_vs_cpu": sd_e2e, "failures": failures}, indent=1))
+            {"card": card, "kernels": rows, "pipeline": pipe, "serving_paths": paths, "bf16_forward": fwd16,
+             "card_vs_cpu": e2e, "backward": bwd, "sd": sd, "sd_options": sd_opts, "sd_card_vs_cpu": sd_e2e,
+             "failures": failures}, indent=1))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1

@@ -11,7 +11,11 @@ package's ``ckpt/torch_import.py:32-158`` and ``:206``, run the other way).
 - conv kernels are HWIO (kh, kw, I, O) -> PyTorch (O, I, kh, kw);
 - ConvTranspose kernels are HWIO and stored spatially *pre-flipped* ->
   PyTorch ``ConvTranspose2d`` (I, O, kh, kw), flipped back;
-- dense kernels (I, O) -> ``Linear`` (O, I).
+- dense kernels (I, O) -> ``Linear`` (O, I);
+- GroupNorm ``scale`` -> ``weight`` (a Block's norm is its ``block.2``);
+- the mid attention's gate ``mid_attn_g`` -> ``mid_attn.fn.g`` and its
+  1x1 convs ``mid_attn/{to_qkv,to_out}`` -> ``mid_attn.fn.fn.*`` (the
+  reference's ``Residual(Rezero(LinearAttention))``).
 """
 
 from __future__ import annotations
@@ -35,12 +39,20 @@ def _dense(v: np.ndarray) -> np.ndarray:
     return np.transpose(v, (1, 0))
 
 
+def _id(v: np.ndarray) -> np.ndarray:
+    return v
+
+
 _RESNET_INNER = {
     "mlp": ("mlp.1", _dense),
     "block1/conv": ("block1.block.1", _conv),
+    "block1/norm": ("block1.block.2", _id),
     "block2/conv": ("block2.block.1", _conv),
+    "block2/norm": ("block2.block.2", _id),
     "res_conv": ("res_conv", _conv),
 }
+# JAX leaf -> PyTorch parameter name
+_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 
 
 def _unet_module(path: str):
@@ -52,7 +64,10 @@ def _unet_module(path: str):
         "mlp_1": ("mlp.2", _dense),
         "up_proj": ("up_proj.1", _conv),
         "final_block/conv": ("final_conv.0.block.1", _conv),
+        "final_block/norm": ("final_conv.0.block.2", _id),
         "final_conv": ("final_conv.1", _conv),
+        "mid_attn/to_qkv": ("mid_attn.fn.fn.to_qkv", _conv),
+        "mid_attn/to_out": ("mid_attn.fn.fn.to_out", _conv),
     }
     if path in fixed:
         return fixed[path]
@@ -97,16 +112,18 @@ def jax_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     ``state_dict``. Raises on a param it cannot place."""
     out: dict[str, torch.Tensor] = {}
     for path, v in _flatten(params):
+        arr = np.asarray(v, dtype=np.float32)
+        if path == ("denoise_fn", "mid_attn_g"):
+            out["denoise_fn.mid_attn.fn.g"] = torch.from_numpy(np.ascontiguousarray(arr))
+            continue
         root, module, leaf = path[0], "/".join(path[1:-1]), path[-1]
         lookup = {"denoise_fn": _unet_module, "rrdb": _rrdb_module}.get(root)
         found = lookup(module) if lookup else None
-        if found is None or leaf not in ("kernel", "bias"):
+        weight = "scale" if found is not None and found[1] is _id else "kernel"  # a norm's, or a kernel
+        if found is None or leaf not in (weight, "bias"):
             raise KeyError(f"cannot carry JAX param {'/'.join(path)} across")
         name, tr = found
-        arr = np.asarray(v, dtype=np.float32)
-        if leaf == "kernel":
-            key, arr = f"{root}.{name}.weight", tr(arr)
-        else:
-            key = f"{root}.{name}.bias"
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+        if leaf != "bias":
+            arr = tr(arr)
+        out[f"{root}.{name}.{_LEAVES[leaf]}"] = torch.from_numpy(np.ascontiguousarray(arr))
     return out

@@ -12,8 +12,16 @@ Noise comes from an explicit ``torch.Generator`` on the carry's device, or
 from a noise hook: ``noise=(x_T, {t: eps_t})`` or a callable ``noise(t)``
 that returns the initial state for ``t=None`` and the step noise of
 timestep ``t`` otherwise. The hook lets a test feed both frameworks one
-stream. Encoder propagation (``enc_interval > 1``), ``interpolate`` and the
-training losses are not ported yet.
+stream. The noise of a step is asked for by its timestep, so a run split
+into segments (``sample_segment``, ``ddim_segment``: the progress path)
+gives exactly the whole run's result.
+
+Encoder propagation (``ddim_sample(..., enc_interval=K)``): the UNet's down
+path runs at the first timestep of each group of K DDIM steps and its
+features are reused by the K decodes of the group, each at its own
+timestep; a remainder of the steps that K does not divide runs exactly, per
+step, at the low-t end. ``interpolate`` and the training losses are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -100,10 +108,21 @@ class GaussianDiffusion(nn.Module):
         return mean, float(s.posterior_variance[t]), float(s.posterior_log_variance_clipped[t])
 
     # -------------------------------------------------------------- sampling
-    def sample(self, img_lr, img_lr_up, noise=None, generator=None):
-        """Ancestral sampling over all T steps. Returns (img, rrdb_out)."""
-        x, cond, rrdb_out, hook = self.sample_prepare(img_lr, img_lr_up, noise, generator)
-        for t in range(self.num_timesteps - 1, -1, -1):
+    def _encode(self, x, t: int, cond, img_lr_up):
+        """The UNet's down path at ``t``: (skips, bottleneck)."""
+        tb = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
+        return self.denoise_fn(x, tb, cond, img_lr_up, cond_projected=True, up_folded=True, mode="encode")
+
+    def _decode(self, enc, t: int):
+        """The UNet's mid block, up path and final convs at ``t`` from
+        cached down-path features; eps in float32."""
+        x = enc[1]
+        tb = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
+        return self.denoise_fn(None, tb, None, mode="decode", enc_feats=enc).float()
+
+    def sample_segment(self, x, cond, img_lr_up, ts, hook: NoiseHook):
+        """Ancestral steps over ``ts`` (descending timesteps)."""
+        for t in ts:
             eps = self._eps(x, t, cond, img_lr_up)
             x0 = self.predict_start_from_noise(x, t, eps).clamp(-1.0, 1.0)
             mean, _, log_var = self.q_posterior(x0, x, t)
@@ -112,6 +131,12 @@ class GaussianDiffusion(nn.Module):
                 x = mean + std * hook(t).to(x.device)
             else:
                 x = mean
+        return x
+
+    def sample(self, img_lr, img_lr_up, noise=None, generator=None):
+        """Ancestral sampling over all T steps. Returns (img, rrdb_out)."""
+        x, cond, rrdb_out, hook = self.sample_prepare(img_lr, img_lr_up, noise, generator)
+        x = self.sample_segment(x, cond, img_lr_up, range(self.num_timesteps - 1, -1, -1), hook)
         return self.res2img(x, img_lr_up), rrdb_out
 
     def ddim_timesteps(self, num_steps: int | None = None):
@@ -138,14 +163,38 @@ class GaussianDiffusion(nn.Module):
             x = x + float(sigma) * hook(ti).to(x.device)
         return x
 
-    def ddim_sample(self, img_lr, img_lr_up, num_steps=None, eta: float = 0.0, noise=None,
-                    generator=None):
-        """DDIM over a strided timestep subset (eta=0: deterministic; eta=1
-        over the full subsequence: the respaced ancestral chain)."""
-        ts, ts_prev = self.ddim_timesteps(num_steps)
-        x, cond, rrdb_out, hook = self.sample_prepare(img_lr, img_lr_up, noise, generator)
+    def ddim_segment(self, x, cond, img_lr_up, ts, ts_prev, hook: NoiseHook, eta: float = 0.0):
+        """DDIM steps over a slice of the strided timesteps."""
         for ti, tp in zip(ts, ts_prev):
             x = self.ddim_update(x, ti, tp, self._eps(x, ti, cond, img_lr_up), eta, hook)
+        return x
+
+    def ddim_segment_encprop(self, x, cond, img_lr_up, ts, ts_prev, hook: NoiseHook, eta: float,
+                             enc_interval: int):
+        """DDIM with encoder propagation over a slice whose length
+        ``enc_interval`` divides: per group of K steps one encode at the
+        group's first timestep, then K decodes, each at its own timestep."""
+        K = int(enc_interval)
+        if len(ts) % K:
+            raise ValueError(f"{len(ts)} steps do not divide into groups of {K}")
+        for g in range(0, len(ts), K):
+            enc = self._encode(x, ts[g], cond, img_lr_up)
+            for ti, tp in zip(ts[g: g + K], ts_prev[g: g + K]):
+                x = self.ddim_update(x, ti, tp, self._decode(enc, ti), eta, hook)
+        return x
+
+    def ddim_sample(self, img_lr, img_lr_up, num_steps=None, eta: float = 0.0, noise=None,
+                    generator=None, enc_interval: int = 1):
+        """DDIM over a strided timestep subset (eta=0: deterministic; eta=1
+        over the full subsequence: the respaced ancestral chain), with
+        encoder propagation when ``enc_interval`` > 1."""
+        ts, ts_prev = self.ddim_timesteps(num_steps)
+        x, cond, rrdb_out, hook = self.sample_prepare(img_lr, img_lr_up, noise, generator)
+        K = int(enc_interval or 1)
+        n_div = (len(ts) // K) * K if K > 1 else 0
+        if n_div:
+            x = self.ddim_segment_encprop(x, cond, img_lr_up, ts[:n_div], ts_prev[:n_div], hook, eta, K)
+        x = self.ddim_segment(x, cond, img_lr_up, ts[n_div:], ts_prev[n_div:], hook, eta)
         return self.res2img(x, img_lr_up), rrdb_out
 
     # ------------------------------------------------------- residual regime

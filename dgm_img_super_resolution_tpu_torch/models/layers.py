@@ -1,12 +1,15 @@
 """SRDiff building blocks (counterpart of the JAX package's
-``models/layers.py:41-58``, ``:208-248`` and ``:326-717``).
+``models/layers.py:41-58``, ``:208-248`` and ``:326-744``).
 
 Modules are NCHW with PyTorch's parameter layouts and the reference
-checkpoint's names (``block.1`` is the conv of a Block, ``mlp.1`` the time
-Linear of a ResnetBlock, ``conv.0``/``conv.1`` the Upsample/Downsample
-convs). Parameters stay float32; every forward casts them to the dtype of
-its input, which is the compute dtype. ``LinearAttention``, GroupNorm and
-``MultiheadAttention`` are off in the SRDiff config and not ported yet.
+checkpoint's names (``block.1`` is the conv of a Block and ``block.2`` its
+GroupNorm when it has one, ``mlp.1`` the time Linear of a ResnetBlock,
+``conv.0``/``conv.1`` the Upsample/Downsample convs, ``fn.g`` and
+``fn.fn.to_qkv`` the mid attention's gate and projection). Parameters stay
+float32; every forward casts them to the dtype of its input, which is the
+compute dtype. GroupNorm Blocks (``groups`` > 0) and ``LinearAttention``
+are off in the SRDiff config; ``MultiheadAttention``, dead code in the
+reference, is not ported.
 
 The kernel gates (``chain_eligible`` ... ``rowpack_eligible``) read the JAX
 package's environment switches, with its defaults, at every forward, so one
@@ -150,15 +153,21 @@ def linear(x, layer: nn.Linear):
     return F.linear(x, layer.weight.to(dt), layer.bias.to(dt))
 
 
+GN_EPS = 1e-6  # the JAX package's GroupNorm (flax's default epsilon)
+
+
 class Block(nn.Module):
-    """ReflectionPad(1) -> Conv3x3 -> Mish (``groups=0``, the SRDiff config).
+    """ReflectionPad(1) -> Conv3x3 -> [GroupNorm when ``groups`` > 0] -> Mish
+    (``groups=0``, no norm, is the SRDiff config).
 
     ``joined``: ``x`` is the up stages' ``[x || skip]`` join, which the JAX
     package convolves as two inputs and never sends to the conv3x3 kernel."""
 
-    def __init__(self, dim_in: int, dim_out: int):
+    def __init__(self, dim_in: int, dim_out: int, groups: int = 0):
         super().__init__()
-        self.block = nn.Sequential(nn.ReflectionPad2d(1), nn.Conv2d(dim_in, dim_out, 3), Mish())
+        norm = [nn.GroupNorm(groups, dim_out, eps=GN_EPS)] if groups > 0 else []
+        self.block = nn.Sequential(nn.ReflectionPad2d(1), nn.Conv2d(dim_in, dim_out, 3), *norm, Mish())
+        self.groups = groups
 
     def _conv(self, x, act: bool, joined: bool):
         c = self.block[1]
@@ -174,7 +183,11 @@ class Block(nn.Module):
         return self._conv(x, False, joined)
 
     def forward(self, x, joined: bool = False):
-        return self._conv(x, True, joined)
+        if self.groups <= 0:
+            return self._conv(x, True, joined)
+        gn = self.block[2]
+        y = F.group_norm(self._conv(x, False, joined).float(), self.groups, gn.weight, gn.bias, gn.eps)
+        return mish(y.to(x.dtype))
 
 
 class ResnetBlock(nn.Module):
@@ -183,11 +196,11 @@ class ResnetBlock(nn.Module):
     ``skip``: the up stages' skip tensor, joined after ``x`` on the channel
     axis (``[x || skip]``) as the input of block1 and of the residual conv."""
 
-    def __init__(self, dim_in: int, dim_out: int, time_emb_dim: int):
+    def __init__(self, dim_in: int, dim_out: int, time_emb_dim: int, groups: int = 0):
         super().__init__()
         self.mlp = nn.Sequential(Mish(), nn.Linear(time_emb_dim, dim_out))
-        self.block1 = Block(dim_in, dim_out)
-        self.block2 = Block(dim_out, dim_out)
+        self.block1 = Block(dim_in, dim_out, groups)
+        self.block2 = Block(dim_out, dim_out, groups)
         self.res_conv = nn.Conv2d(dim_in, dim_out, 1) if dim_in != dim_out else nn.Identity()
 
     def time_vec(self, time_emb):
@@ -227,3 +240,48 @@ class Downsample(nn.Module):
     def forward(self, x):
         c = self.conv[1]
         return reflect_conv3x3(x, c.weight, c.bias, stride=2)
+
+
+class LinearAttention(nn.Module):
+    """O(h*w) linear attention: q, k, v from a bias-free 1x1 conv
+    (channels ordered (qkv, head, d)), a softmax of k over the pixels, the
+    context k v^T per head, the output context^T q, then a 1x1 conv."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        hidden = heads * dim_head
+        self.to_qkv = nn.Conv2d(dim, hidden * 3, 1, bias=False)
+        self.to_out = nn.Conv2d(hidden, dim, 1)
+
+    def forward(self, x):
+        b, _, h, w = x.shape
+        qkv = conv(x, self.to_qkv).reshape(b, 3, self.heads, self.dim_head, h * w)
+        q, k, v = qkv.unbind(1)
+        k = k.softmax(dim=-1)
+        context = torch.einsum("bhdn,bhen->bhde", k, v)
+        out = torch.einsum("bhde,bhdn->bhen", context, q)
+        return conv(out.reshape(b, self.heads * self.dim_head, h, w), self.to_out)
+
+
+class Rezero(nn.Module):
+    """fn(x) * g, with the scalar gate g starting at 0."""
+
+    def __init__(self, fn: nn.Module):
+        super().__init__()
+        self.fn = fn
+        self.g = nn.Parameter(torch.zeros(1))
+
+    def forward(self, x):
+        return self.fn(x) * self.g.to(x.dtype)
+
+
+class Residual(nn.Module):
+    """x + fn(x)."""
+
+    def __init__(self, fn: nn.Module):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x):
+        return x + self.fn(x)

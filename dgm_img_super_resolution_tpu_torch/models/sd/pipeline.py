@@ -6,20 +6,25 @@ low-res DDPM schedule -> denoising loop over latents with the LR image
 concatenated on channels -> VAE decode to x4 resolution, NHWC float [0, 1].
 
 The loop runs on the host in Python, one UNet call per step: classifier-free
-guidance is a doubled batch through that call; the model predicts v; the
-timesteps are diffusers' "leading" spacing with ``steps_offset`` and
-``set_alpha_to_one`` from the scheduler config; the update is DDIM with eta
-(``sampler="ddpm"`` is the respaced ancestral chain, which is DDIM with eta
-1). Noise comes from an explicit ``torch.Generator`` or from a noise hook
+guidance is a doubled batch through that call, its unconditional half
+encoding the negative prompt (empty by default); the published model
+predicts v (``prediction_type`` "epsilon" is taken too); the timesteps are
+diffusers' "leading" spacing with ``steps_offset`` and ``set_alpha_to_one``
+from the scheduler config; the update is DDIM with eta (``sampler="ddpm"``
+is the respaced ancestral chain, which is DDIM with eta 1). With
+``enc_interval`` K > 1 and no callback, the UNet's down path runs at the
+first step of each group of K and its features serve the group's K decodes
+(encoder propagation); the steps K does not divide run exactly at the end.
+Noise comes from an explicit ``torch.Generator`` or from a noise hook
 ``noise=(latents, aug_noise, {t: eps_t})`` of NCHW float32 tensors, so that
 a test can feed the JAX draws. It runs on ``cuda`` unless the caller passes
 a device, and raises when there is no CUDA device and none was asked for.
 
 Weights: a ``{"unet", "vae", "text_encoder"}`` dict of state dicts under the
 published names, loaded strictly, or a random init from ``seed``. The
-schedules are the published scheduler configs (``ckpt/sd_inventory.py``).
-Not ported yet: encoder propagation (``enc_interval > 1``), negative
-prompts, a checkpoint's own scheduler configs.
+schedules are the published scheduler configs (``ckpt/sd_inventory.py``),
+each key of which ``scheduler_config`` / ``low_res_scheduler_config``
+overrides.
 """
 
 from __future__ import annotations
@@ -81,12 +86,15 @@ class StableDiffusionUpscalePipeline:
     def __init__(self, params: Mapping[str, Mapping[str, torch.Tensor]] | None = None, *,
                  unet_config: dict = X4_UNET_CONFIG, vae_config: dict = X4_VAE_CONFIG,
                  text_config: dict = X4_TEXT_CONFIG, dtype: torch.dtype = torch.bfloat16,
-                 device: str | torch.device | None = None, seed: int = 0):
+                 device: str | torch.device | None = None, seed: int = 0,
+                 scheduler_config: dict | None = None, low_res_scheduler_config: dict | None = None):
         """``params``: ``{"unet": ..., "vae": ..., "text_encoder": ...}``
         state dicts (float32) under the published names; ``None`` draws
         random weights from ``seed``. The configs default to the published
-        ones; the noise comes from a generator on ``device`` seeded by
-        ``seed`` unless a call brings its own."""
+        ones; ``scheduler_config`` and ``low_res_scheduler_config`` override
+        keys of the published scheduler configs. The noise comes from a
+        generator on ``device`` seeded by ``seed`` unless a call brings its
+        own."""
         self.device = resolve_device(device)
         self.dtype = dtype
         with torch.device(self.device):
@@ -103,21 +111,24 @@ class StableDiffusionUpscalePipeline:
         # the hash-bucket fallback until the published BPE vocab is in the repo
         self.tokenizer = SimpleTokenizer(vocab_size=text_config["vocab_size"],
                                          max_len=text_config["max_position_embeddings"])
-        sc = X4_SCHEDULER_CONFIG
-        if sc["prediction_type"] != "v_prediction":
-            raise NotImplementedError(f"prediction_type {sc['prediction_type']!r}")
-        self.schedule = _schedule_from_config(sc)  # denoising: v-prediction latent betas
-        self.steps_offset = int(sc["steps_offset"])
+        sc = dict(X4_SCHEDULER_CONFIG, **(scheduler_config or {}))
+        lrc = dict(X4_LOW_RES_SCHEDULER_CONFIG, **(low_res_scheduler_config or {}))
+        self.schedule = _schedule_from_config(sc)  # denoising: the latent betas
+        self.prediction_type = sc.get("prediction_type", "epsilon")
+        self.steps_offset = int(sc.get("steps_offset", 0))
         acp0 = self.schedule.alphas_cumprod[0]
-        self.final_alpha_cumprod = np.float32(1.0) if sc["set_alpha_to_one"] else acp0
-        self.low_res_schedule = _schedule_from_config(X4_LOW_RES_SCHEDULER_CONFIG)  # LR noise augmentation
+        self.final_alpha_cumprod = np.float32(1.0) if sc.get("set_alpha_to_one", True) else acp0
+        self.low_res_schedule = _schedule_from_config(lrc)  # LR noise augmentation
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     # ------------------------------------------------------------- internals
-    def encode_prompt(self, prompts: list[str]):
+    def encode_prompt(self, prompts: list[str], negative: list[str] | None = None):
         """(cond, uncond) text states, each (N, 77, width) in the pipeline's
-        dtype; uncond encodes the empty prompt."""
-        ids = self.tokenizer(list(prompts) + [""] * len(prompts))
+        dtype; uncond encodes the negative prompts, empty by default."""
+        negative = [""] * len(prompts) if negative is None else list(negative)
+        if len(negative) != len(prompts):
+            raise ValueError(f"{len(negative)} negative prompts for {len(prompts)} prompts")
+        ids = self.tokenizer(list(prompts) + negative)
         states = self.text_encoder(torch.from_numpy(ids.astype(np.int64)).to(self.device))
         return states[: len(prompts)], states[len(prompts):]
 
@@ -135,29 +146,45 @@ class StableDiffusionUpscalePipeline:
             + float(s.sqrt_one_minus_alphas_cumprod[noise_level]) * aug
         return x, img_aug.to(self.dtype)
 
-    def _model_out(self, x, t: int, img_aug, ctx, nl, guidance_scale: float):
-        """The UNet's prediction at ``t`` in float32, guided: with CFG one call
-        on the doubled batch, cond first."""
-        inp = torch.cat([x.to(self.dtype), img_aug], dim=1)
-        if guidance_scale == 1.0:
-            tt = torch.full((x.shape[0],), t, dtype=torch.long, device=self.device)
-            return self.unet(inp, tt, ctx, nl).float()
-        tt = torch.full((2 * x.shape[0],), t, dtype=torch.long, device=self.device)
-        out_c, out_u = self.unet(torch.cat([inp, inp]), tt, ctx, nl).float().chunk(2)
+    def _model_out(self, x, t: int, img_aug, ctx, nl, guidance_scale: float, mode: str = "full", enc=None):
+        """The UNet at ``t``, with CFG one call on the doubled batch (cond
+        first): the guided prediction in float32, or with ``mode="encode"``
+        the down path's features, which ``mode="decode"`` takes as ``enc``
+        (``x`` unused)."""
+        cfg = guidance_scale != 1.0
+        tt = torch.full((ctx.shape[0],), t, dtype=torch.long, device=self.device)
+        if mode == "decode":
+            out = self.unet(None, tt, ctx, nl, mode="decode", enc_feats=enc)
+        else:
+            inp = torch.cat([x.to(self.dtype), img_aug], dim=1)
+            out = self.unet(torch.cat([inp, inp]) if cfg else inp, tt, ctx, nl, mode=mode)
+            if mode == "encode":
+                return out
+        out = out.float()
+        if not cfg:
+            return out
+        out_c, out_u = out.chunk(2)
         return out_u + guidance_scale * (out_c - out_u)
 
     def _update(self, x, t: int, t_prev: int, model_out, eta: float, z):
-        """One DDIM step x_t -> x_prev from the predicted v (no x0
-        clipping: ``clip_sample`` is off in the published config); ``z`` is
-        the step noise when ``eta`` > 0. The coefficients are float32
-        scalars, as on the JAX side."""
+        """One DDIM step x_t -> x_prev from the model's prediction of v (or
+        eps, by ``prediction_type``), with no x0 clipping (``clip_sample``
+        is off in the published config); ``z`` is the step noise when
+        ``eta`` > 0. The coefficients are float32 scalars, as on the JAX
+        side."""
         acp = self.schedule.alphas_cumprod
         a_t = acp[t]
         a_prev = acp[t_prev] if t_prev >= 0 else self.final_alpha_cumprod
         one = np.float32(1.0)
         sq_a, sq_1ma = float(np.sqrt(a_t)), float(np.sqrt(one - a_t))
-        x0 = sq_a * x - sq_1ma * model_out  # v-prediction
-        eps = sq_a * model_out + sq_1ma * x
+        if self.prediction_type == "v_prediction":
+            x0 = sq_a * x - sq_1ma * model_out
+            eps = sq_a * model_out + sq_1ma * x
+        elif self.prediction_type == "epsilon":
+            eps = model_out
+            x0 = (x - sq_1ma * eps) / sq_a
+        else:
+            raise NotImplementedError(self.prediction_type)
         sigma = np.float32(eta) * np.sqrt((one - a_prev) / (one - a_t)) * np.sqrt(one - a_t / a_prev)
         out = float(np.sqrt(a_prev)) * x0 + float(np.sqrt(max(one - a_prev - sigma * sigma, 0))) * eps
         return out + float(sigma) * z if eta else out
@@ -171,12 +198,16 @@ class StableDiffusionUpscalePipeline:
                        guidance_scale: float = 9.0, noise_level: int = 20,
                        generator: torch.Generator | None = None, callback: Callable | None = None,
                        callback_steps: int = 1, eta: float = 0.0, sampler: str = "ddim",
-                       noise=None) -> torch.Tensor:
+                       noise=None, negative_prompt: str | list[str] | None = None,
+                       enc_interval: int = 1) -> torch.Tensor:
         """LR image(s), HWC or NHWC, uint8 or float in [-1, 1] (numpy or
         torch) -> x4 images, NHWC float [0, 1], left on the device.
         ``callback(i, t, latents)`` fires after every ``callback_steps``-th
-        step and after the last (latents NCHW float32). ``sampler`` is
-        ``"ddim"`` with ``eta`` (0 = deterministic) or ``"ddpm"`` (eta 1)."""
+        step and after the last (latents NCHW float32); the callback's path
+        runs every step exactly. ``sampler`` is ``"ddim"`` with ``eta`` (0 =
+        deterministic) or ``"ddpm"`` (eta 1). ``negative_prompt``: one
+        string for every image, or one per image. ``enc_interval`` > 1:
+        encoder propagation."""
         if sampler == "ddpm":
             eta = 1.0
         elif sampler != "ddim":
@@ -191,7 +222,8 @@ class StableDiffusionUpscalePipeline:
         n = img.shape[0]
         if len(prompts) == 1 and n > 1:
             prompts = prompts * n
-        cond, uncond = self.encode_prompt(prompts)
+        negatives = [negative_prompt] * n if isinstance(negative_prompt, str) else negative_prompt
+        cond, uncond = self.encode_prompt(prompts, negatives)
 
         # diffusers "leading" spacing: for T=1000 and 20 steps 951, 901, ..., 1
         T, steps = self.schedule.num_timesteps, int(num_inference_steps)
@@ -205,8 +237,15 @@ class StableDiffusionUpscalePipeline:
         ctx = cond if gs == 1.0 else torch.cat([cond, uncond])
         nl = torch.full((ctx.shape[0],), int(noise_level), dtype=torch.long, device=self.device)
         every = max(1, int(callback_steps))
+        K = max(1, int(enc_interval)) if callback is None else 1
+        enc = None
         for i, t in enumerate(int(t) for t in ts):
-            out = self._model_out(x, t, img_aug, ctx, nl, gs)
+            if i < steps // K * K and K > 1:
+                if i % K == 0:
+                    enc = self._model_out(x, t, img_aug, ctx, nl, gs, mode="encode")
+                out = self._model_out(None, t, None, ctx, nl, gs, mode="decode", enc=enc)
+            else:
+                out = self._model_out(x, t, img_aug, ctx, nl, gs)
             z = None
             if eta:
                 z = torch.randn(x.shape, generator=gen, device=self.device) if noise is None \

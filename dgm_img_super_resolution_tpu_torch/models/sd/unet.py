@@ -7,7 +7,10 @@ image (``in_channels`` 7); down and up blocks are GroupNorm + SiLU ResBlocks
 with ``Transformer2D`` cross-attention to the text states; the LR noise level
 is a learned class embedding (``num_class_embeds``) added to the time
 embedding. ``attention_head_dim`` in the published config is the head
-COUNT (8). Only ``mode="full"`` is ported: encoder propagation waits.
+COUNT (8). ``mode`` splits the forward at the bottleneck for encoder
+propagation, as the SRDiff UNet: ``"encode"`` returns ``(skips, h)`` after
+the down path; ``"decode"`` takes them as ``enc_feats`` and runs the mid
+block, the up path and the output convs.
 """
 
 from __future__ import annotations
@@ -167,20 +170,30 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = nn.GroupNorm(gn_groups(chs[0]), chs[0], eps=NORM_EPS)
         self.conv_out = nn.Conv2d(chs[0], cfg["out_channels"], 3, padding=1)
 
-    def forward(self, x, timesteps, encoder_hidden_states, class_labels=None):
+    def forward(self, x, timesteps, encoder_hidden_states, class_labels=None, *, mode: str = "full",
+                enc_feats=None):
         """x: (N, in_ch, H, W) latent and LR image; timesteps: (N,);
         encoder_hidden_states: (N, L, cross_dim); class_labels: (N,) LR noise
-        level -> (N, out_ch, H, W)."""
+        level -> (N, out_ch, H, W); with ``mode="encode"`` the down path's
+        ``(skips, h)``, which ``mode="decode"`` takes as ``enc_feats`` (``x``
+        unused)."""
+        if mode not in ("full", "encode", "decode"):
+            raise ValueError(f"mode {mode!r}")
         dt = self.conv_in.weight.dtype
         temb = self.time_embedding(timestep_embedding(timesteps, self.ch0).to(dt))
         if class_labels is not None:
             if self.class_embedding is None:
                 raise NotImplementedError("class conditioning other than num_class_embeds is not ported")
             temb = temb + self.class_embedding(class_labels)
-        h = self.conv_in(x)
-        skips = [h]
-        for blk in self.down_blocks:
-            h = blk(h, temb, encoder_hidden_states, skips)
+        if mode == "decode":
+            skips, h = list(enc_feats[0]), enc_feats[1]
+        else:
+            h = self.conv_in(x)
+            skips = [h]
+            for blk in self.down_blocks:
+                h = blk(h, temb, encoder_hidden_states, skips)
+            if mode == "encode":
+                return tuple(skips), h
         h = self.mid_block(h, temb, encoder_hidden_states)
         for blk in self.up_blocks:
             h = blk(h, temb, encoder_hidden_states, skips)

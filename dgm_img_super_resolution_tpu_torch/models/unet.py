@@ -5,7 +5,9 @@
 - down stages of 2 x ResnetBlock + Downsample (none after the last); the
   RRDB condition, projected to HR by a ConvTranspose(2s, s, s/2), and the
   optional LR-upsample projection are added after down stage 0;
-- mid block1 / block2;
+- mid block1, then (``use_attn``) ``x + LinearAttention(x) * g`` with the
+  gate ``g`` starting at 0 (the reference's ``Residual(Rezero(...))``),
+  then block2;
 - up stages with the ``[x || skip]`` join; only 3 of the 4 saved skips are
   popped (the reference topology);
 - final reflect Block + 1x1 conv.
@@ -22,8 +24,13 @@ final 1x1 at C = 64 to ``tail_fuse``; and, when CONV is on, each C -> C
 Block conv at C in {32, 64} to ``conv3x3``. Everything else, and every
 region whose gate is off, takes the plain module path (cuDNN on the card).
 On CPU tensors the wrappers run their plain versions, so the CPU tests go
-through the same routing as the card. ``LinearAttention``, GroupNorm and the
-encoder-propagation modes wait.
+through the same routing as the card. As in JAX, ``gn_groups`` > 0 (Blocks
+with GroupNorm) turns every region off, and ``use_attn`` the mid pair's.
+
+``mode`` splits the forward at the bottleneck for encoder propagation:
+``"encode"`` runs the down path and returns ``(skips, x)``; ``"decode"``
+takes ``enc_feats=(skips, x)`` and runs the mid block, the up path and the
+final convs; ``"full"`` runs both.
 """
 
 from __future__ import annotations
@@ -36,7 +43,10 @@ from dgm_img_super_resolution_tpu_torch.models.layers import (
     Block,
     Downsample,
     Mish,
+    LinearAttention,
     ResnetBlock,
+    Residual,
+    Rezero,
     Upsample,
     conv,
     linear,
@@ -64,11 +74,10 @@ class Unet(nn.Module):
                  rrdb_num_block: int = 8, sr_scale: int = 4, use_attn: bool = False, res: bool = True,
                  up_input: bool = False, groups: int = 0, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if use_attn or groups:
-            raise NotImplementedError("use_attn and gn_groups are not ported yet")
         if len(dim_mults) < 2:
             raise NotImplementedError("the port's UNet needs at least two stages")
         self.dim, self.res, self.up_input, self.dtype = dim, res, up_input, dtype
+        self.use_attn, self.groups = use_attn, groups
         dims = [3] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         n_sel = len(range(2, rrdb_num_block + 1, 3))  # feas[2::3] of nb + 1 features
@@ -78,17 +87,19 @@ class Unet(nn.Module):
         for i, (di, do) in enumerate(in_out):
             last = i >= len(in_out) - 1
             self.downs.append(nn.ModuleList([
-                ResnetBlock(di, do, dim), ResnetBlock(do, do, dim),
+                ResnetBlock(di, do, dim, groups), ResnetBlock(do, do, dim, groups),
                 Downsample(do) if not last else nn.Identity(),
             ]))
-        self.mid_block1 = ResnetBlock(dims[-1], dims[-1], dim)
-        self.mid_block2 = ResnetBlock(dims[-1], dims[-1], dim)
+        self.mid_block1 = ResnetBlock(dims[-1], dims[-1], dim, groups)
+        if use_attn:
+            self.mid_attn = Residual(Rezero(LinearAttention(dims[-1])))
+        self.mid_block2 = ResnetBlock(dims[-1], dims[-1], dim, groups)
         self.ups = nn.ModuleList()
         for di, do in reversed(in_out[1:]):
             self.ups.append(nn.ModuleList([
-                ResnetBlock(do * 2, di, dim), ResnetBlock(di, di, dim), Upsample(di),
+                ResnetBlock(do * 2, di, dim, groups), ResnetBlock(di, di, dim, groups), Upsample(di),
             ]))
-        self.final_conv = nn.Sequential(Block(dim, dim), nn.Conv2d(dim, out_dim, 1))
+        self.final_conv = nn.Sequential(Block(dim, dim, groups), nn.Conv2d(dim, out_dim, 1))
         if res and up_input:
             self.up_proj = nn.Sequential(nn.ReflectionPad2d(1), nn.Conv2d(3, dim, 3))
 
@@ -106,24 +117,43 @@ class Unet(nn.Module):
         c = self.up_proj[1]
         return reflect_conv3x3(img_lr_up.to(self.dtype), c.weight, c.bias)
 
+    def _chain_ok(self, x, c: int) -> bool:
+        """The region gates, closed to every region when Blocks normalise
+        (JAX ``unet.py`` ``chain_ok``)."""
+        return self.groups == 0 and L.chain_eligible(x.shape[2], x.shape[3], c)
+
     def forward(self, x, time, cond, img_lr_up=None, *, cond_projected: bool = False,
-                up_folded: bool = False):
+                up_folded: bool = False, mode: str = "full", enc_feats=None):
         """x: (N,3,H,W) noisy residual; time: (N,) int; cond: the channel
         concat of the selected RRDB features at LR (or its projection, with
         ``cond_projected=True``); img_lr_up: (N,3,H,W). Returns eps (N,3,H,W)
-        in the compute dtype."""
+        in the compute dtype; with ``mode="encode"`` the down path's
+        ``(skips, x)``; ``mode="decode"`` takes those as ``enc_feats`` (``x``,
+        ``cond`` and ``img_lr_up`` unused)."""
+        if mode not in ("full", "encode", "decode"):
+            raise ValueError(f"mode {mode!r}")
         dt = self.dtype
-        cond_proj = _nhwc(cond.to(dt) if cond_projected else self.project(cond))
         t = sinusoidal_pos_emb(time, self.dim).to(dt)
         t = linear(mish(linear(t, self.mlp[0])), self.mlp[2])
-        x = _nhwc(x.to(dt))
+        if mode == "decode":
+            h, x = list(enc_feats[0]), enc_feats[1]
+        else:
+            h, x = self._down(x, t, cond, img_lr_up, cond_projected, up_folded)
+            if mode == "encode":
+                return tuple(h), x
+        return self._up(h, x, t)
 
+    def _down(self, x, t, cond, img_lr_up, cond_projected: bool, up_folded: bool):
+        """The down path: (the four stage outputs, the bottleneck)."""
+        dt = self.dtype
+        cond_proj = _nhwc(cond.to(dt) if cond_projected else self.project(cond))
+        x = _nhwc(x.to(dt))
         h = []
         for i, (rb1, rb2, down) in enumerate(self.downs):
             last = i == len(self.downs) - 1
             dim_out = rb1.block1.block[1].out_channels
             x_ds = None
-            if L.chain_eligible(x.shape[2], x.shape[3], dim_out):
+            if self._chain_ok(x, dim_out):
                 fold_ds = (
                     i == 0 and not last and x.shape[1] <= 4 and L.chain_ds_enabled()
                     and L.chain_stem_enabled() and dim_out == 64
@@ -147,19 +177,26 @@ class Unet(nn.Module):
             h.append(x)
             if not last:
                 x = x_ds if x_ds is not None else down(x)
+        return h, x
 
-        if L.chain_eligible(x.shape[2], x.shape[3], x.shape[1]):
+    def _up(self, h, x, t):
+        """The mid block, the up path and the final convs: eps."""
+        if not self.use_attn and self._chain_ok(x, x.shape[1]):
             x = self._fused_pair(self.mid_block1, self.mid_block2, x, t)
         else:
-            x = self.mid_block2(self.mid_block1(x, t), t)
+            x = self.mid_block1(x, t)
+            if self.use_attn:
+                x = self.mid_attn(x)
+            x = self.mid_block2(x, t)
 
         for i, (rb1, rb2, up) in enumerate(self.ups):
             dim_in = rb2.block1.block[1].out_channels
-            if L.chain_eligible(x.shape[2], x.shape[3], dim_in):
+            if self._chain_ok(x, dim_in):
                 x = self._fused_pair(rb1, rb2, x, t, skip=h.pop())
             else:
                 x = rb2(rb1(x, t, skip=h.pop()), t)
-            if i == len(self.ups) - 1 and L.tail_eligible(x.shape[2], x.shape[3], dim_in):
+            if (i == len(self.ups) - 1 and self.groups == 0
+                    and L.tail_eligible(x.shape[2], x.shape[3], dim_in)):
                 return tail_fuse(x, *_wb(up.conv[0]), *_wb(self.final_conv[0].block[1]),
                                  *_wb(self.final_conv[1]))
             x = _nhwc(up(x))

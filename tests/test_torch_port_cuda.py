@@ -28,6 +28,7 @@ from chip_smoke import CUDNN_ENV, FWD_F32_RATIO_MAX, FWD_F32_RATIO_MEAN, FWD_MAX
 from chip_smoke import backward_inputs, chain_inputs, head_piece_args, tail_args
 from chip_smoke import _counters, _read_counts, _reset_counts, core_edge_args, flash_inputs, forward_launches, grad_errors
 from chip_smoke import switches, unet_grads
+from chip_smoke import ENCPROP_RUNS, encprop_launches
 
 pytestmark = pytest.mark.cuda
 
@@ -522,3 +523,74 @@ def test_flash_attention_cross_lengths_and_refusals(flash):
         flash.flash_attention(*flash_inputs(1, 64, 1, 64, torch.float16, 4))
     with pytest.raises(ValueError, match="contiguous"):
         flash.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)
+
+
+# ------------------------------------------------ serving paths of slice 12
+def _serving_pipe(**over):
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.inference import SRDiffPipeline
+
+    hp = Hparams(sampler="ddim", sample_timesteps=20, ddim_eta=1.0, compute_dtype="bfloat16", **over)
+    return SRDiffPipeline(hp)
+
+
+@pytest.mark.parametrize("cfg,k", ENCPROP_RUNS)
+def test_encoder_propagation_launches(kernels, cfg, k):
+    """The full-width bf16 ddim20 serve with ``enc_interval`` K launches
+    ``chip_smoke.encprop_launches``: an encode per group and per remainder
+    step, a decode per step (batch 2 at LR 32; counts do not depend on
+    size)."""
+    import numpy as np
+
+    pipe = _serving_pipe(enc_interval=k)
+    counters = _counters()
+    imgs = np.random.default_rng(k).integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
+    with switches(**CONFIGS[cfg]):
+        _reset_counts(counters)
+        out = pipe.upscale_batch_device(imgs)
+        torch.cuda.synchronize()
+    assert {n: v for n, v in _read_counts(counters).items() if v} == encprop_launches(cfg, k)
+    assert out.shape == (2, 128, 128, 3) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("cfg", ["default", "A"])
+def test_encode_decode_is_the_full_forward_at_full_width(kernels, cfg):
+    """bf16, hidden 64, 1|2|3|4 at 128x128 HR: the split runs the same
+    launches on the same inputs, so it is the full forward bit for bit."""
+    pipe = _serving_pipe()
+    unet = pipe.model.denoise_fn
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(2, 3, 128, 128, device="cuda", generator=g)
+    cond = torch.randn(2, 64, 128, 128, device="cuda", generator=g)
+    t = torch.tensor([99, 44], device="cuda")
+    with switches(**CONFIGS[cfg]), torch.inference_mode():
+        full = unet(x, t, cond, cond_projected=True, up_folded=True)
+        enc = unet(x, t, cond, cond_projected=True, up_folded=True, mode="encode")
+        split = unet(None, t, None, mode="decode", enc_feats=enc)
+    assert torch.equal(split, full)
+
+
+def test_over_budget_chunk_zero_is_the_unchunked_batch(kernels):
+    """A budget of 2 images of 128x128 HR: a batch of 3 in two sub-batches
+    (the second padded); sub-batch 0 equals the serve of its 2 images with
+    the same noise, and the launches are two batches' worth."""
+    import numpy as np
+
+    from dgm_img_super_resolution_tpu_torch.diffusion.gaussian import as_noise_hook
+    from dgm_img_super_resolution_tpu_torch.inference import ChunkNoise
+
+    pipe = _serving_pipe(max_native_hr_pixels=2 * 128 * 128)
+    noise = ChunkNoise(lambda path, shape: as_noise_hook(
+        None, shape, "cuda", torch.Generator(device="cuda").manual_seed(50 + sum(path))))
+    imgs = np.random.default_rng(3).integers(0, 256, (3, 32, 32, 3), dtype=np.uint8)
+    counters = _counters()
+    _reset_counts(counters)
+    seen = []
+    out = pipe.upscale_batch_device(imgs, noise=noise, progress_cb=lambda d, t: seen.append((d, t)))
+    torch.cuda.synchronize()
+    assert {n: v for n, v in _read_counts(counters).items() if v} == {n: 2 * v for n, v in
+                                                                     SERVE_LAUNCHES["default"].items()}
+    assert seen == [(d, 40) for d in range(1, 41)]
+    whole = pipe.upscale_batch_device(imgs[:2], noise=noise.fold_in(0).hook((2, 3, 128, 128)))
+    assert out.shape == (3, 128, 128, 3)
+    assert (out[:2] - whole).abs().max().item() <= 3e-2

@@ -56,6 +56,31 @@ def test_package_imports_with_jax_blocked():
     assert int(out.stdout.strip()) >= 15
 
 
+def test_new_serving_paths_run_with_jax_blocked():
+    """The over-budget sub-batches and feathered tiles, progress, encoder
+    propagation and the UNet's attention and GroupNorm run in a process
+    where JAX cannot be imported."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'flax', 'dgm_img_super_resolution_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from dgm_img_super_resolution_tpu_torch.core.config import Hparams\n"
+        "from dgm_img_super_resolution_tpu_torch.inference import SRDiffPipeline\n"
+        "hp = Hparams(hidden_size=8, rrdb_num_block=2, rrdb_num_feat=8, timesteps=4, compute_dtype='float32',\n"
+        "             sampler='ddim', sample_timesteps=4, ddim_eta=1.0, enc_interval=2, use_attn=True, gn_groups=4,\n"
+        "             max_native_hr_pixels=2 * 32 * 32, infer_patch_size=8, infer_patch_overlap=2)\n"
+        "pipe = SRDiffPipeline(hp, device='cpu')\n"
+        "seen = []\n"
+        "out = pipe.upscale_batch(np.zeros((3, 8, 8, 3), np.uint8), progress_cb=lambda d, t: seen.append((d, t)))\n"
+        "big = pipe.upscale(np.zeros((12, 12, 3), np.uint8))\n"
+        "print(out.shape, big.shape, seen[-1], bool(np.isfinite(out).all() and np.isfinite(big).all()))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == "(3, 32, 32, 3) (48, 48, 3) (8, 8) True".split()
+
+
 def test_cpu_regions_leave_the_launch_counters_alone():
     from chip_smoke import Regions
     from dgm_img_super_resolution_tpu_torch.ops.kernels import block_chain as bc

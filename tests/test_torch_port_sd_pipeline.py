@@ -30,7 +30,7 @@ from dgm_img_super_resolution_tpu_torch.ckpt import sd_inventory as inv
 from dgm_img_super_resolution_tpu_torch.ckpt.sd_params import jax_sd_params_to_state_dicts
 from dgm_img_super_resolution_tpu_torch.models.sd.pipeline import StableDiffusionUpscalePipeline
 
-from torch_port_helpers import CLIP_TINY, UNET_TINY, VAE_TINY, random_published_state_dict
+from torch_port_helpers import CLIP_TINY, UNET_TINY, VAE_TINY, random_published_state_dict, sd_jax_noise
 
 RUNS = {  # the keyword arguments of both calls, and the callback's stride
     "ddim3_eta0_cfg": (dict(num_inference_steps=3, guidance_scale=9.0), 1),
@@ -62,18 +62,6 @@ def pipelines():
     return jpipe, tpipe
 
 
-def jax_noise(key, n, h, w, ts):
-    """The JAX pipeline's draws, as NCHW tensors for the port's hook."""
-    rng_prep, rng_steps = jax.random.split(key)
-    rng_lat, rng_aug = jax.random.split(rng_prep)
-    to_t = lambda a: torch.from_numpy(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))  # noqa: E731
-    lat = jax.random.normal(rng_lat, (n, h, w, 4), jnp.float32)
-    aug = jax.random.normal(rng_aug, (n, h, w, 3), jnp.float32)
-    steps = {int(t): to_t(jax.random.normal(jax.random.fold_in(rng_steps, int(t)), (n, h, w, 4), jnp.float32))
-             for t in ts}
-    return to_t(lat), to_t(aug), steps
-
-
 @pytest.mark.parametrize("run", sorted(RUNS))
 def test_pipeline_matches_jax(pipelines, run):
     jpipe, tpipe = pipelines
@@ -85,7 +73,7 @@ def test_pipeline_matches_jax(pipelines, run):
     ts = (np.arange(steps) * (1000 // steps))[::-1] + 1
     want = jpipe(["a cat", "a dog"], imgs, rng=key, **kw)
     seen = []
-    got = tpipe(["a cat", "a dog"], imgs, noise=jax_noise(key, 2, 8, 8, ts), callback_steps=every,
+    got = tpipe(["a cat", "a dog"], imgs, noise=sd_jax_noise(key, 2, 8, 8, ts), callback_steps=every,
                 callback=lambda i, t, x: seen.append((i, t, tuple(x.shape))), **kw)
     # every `every`-th step and the last, as the JAX pipeline's segments
     assert seen == [(i, int(t), (2, 4, 8, 8)) for i, t in enumerate(ts) if (i + 1) % every == 0 or i == steps - 1]

@@ -45,6 +45,19 @@ def jax_noise(key, shape_nhwc, ts):
     return x_t, steps
 
 
+def sd_jax_noise(key, n, h, w, ts):
+    """The JAX SD pipeline's draws, as NCHW tensors for the port's hook:
+    the initial latents, the LR augmentation noise and the step noise of
+    each timestep in ``ts``."""
+    rng_prep, rng_steps = jax.random.split(key)
+    rng_lat, rng_aug = jax.random.split(rng_prep)
+    to_t = lambda a: torch.from_numpy(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))  # noqa: E731
+    lat = jax.random.normal(rng_lat, (n, h, w, 4))
+    aug = jax.random.normal(rng_aug, (n, h, w, 3))
+    steps = {int(t): to_t(jax.random.normal(jax.random.fold_in(rng_steps, int(t)), (n, h, w, 4))) for t in ts}
+    return to_t(lat), to_t(aug), steps
+
+
 # Tiny SD configs under the published schemas (as tests/test_sd_torch_parity.py)
 UNET_TINY = {
     "in_channels": 7, "out_channels": 4, "block_out_channels": [32, 64], "layers_per_block": 2,

@@ -2,7 +2,7 @@
 """Where the time of one serve goes on the GPU (the PyTorch port).
 
     python3 tools/torch_port_profile.py [--model srdiff|sd] [--config default|A|B|C] [--batch N] [--steps 20]
-                                        [--lr PX] [--top 20] [--out DIR]
+                                        [--enc-interval K] [--lr PX] [--top 20] [--out DIR]
 
 ``--model srdiff`` (default) serves the default full-width SRDiff config
 (seeded random weights, bf16, DDIM ``--steps`` steps with eta 1, batch
@@ -10,7 +10,8 @@
 of ``--config`` (``chip_smoke.CONFIGS``: the defaults, A, B or C). ``--model sd`` serves the SD
 x4-upscaler at the published widths (seeded random weights, bf16, DDIM
 ``--steps`` steps with eta 0, guidance 9, noise level 20, batch ``--batch``
-(1) of ``--lr``-square (256) uint8 LR -> x4). Each serves once to warm up,
+(1) of ``--lr``-square (256) uint8 LR -> x4). ``--enc-interval`` K > 1 serves
+either with encoder propagation. Each serves once to warm up,
 then once under ``torch.profiler``. Prints the device time by kernel class
 and the ``--top`` kernels, the device's busy and idle share of the wall time, and
 one JSON line with the same numbers. ``--out DIR`` also writes a Chrome trace.
@@ -50,6 +51,7 @@ def main() -> int:
                     help="SRDiff kernel switches (chip_smoke.CONFIGS)")
     ap.add_argument("--batch", type=int, default=None, help="images per serve (srdiff 8, sd 1)")
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--enc-interval", type=int, default=1, help="encoder propagation every K steps")
     ap.add_argument("--top", type=int, default=20, help="kernels listed by device time")
     ap.add_argument("--lr", type=int, default=None, help="LR side in pixels (srdiff 128, sd 256)")
     ap.add_argument("--out", type=Path, default=None)
@@ -80,12 +82,14 @@ def profile_serve(args) -> int:
         from dgm_img_super_resolution_tpu_torch.models.sd.pipeline import StableDiffusionUpscalePipeline
 
         pipe = StableDiffusionUpscalePipeline(seed=0)
-        serve = lambda: pipe.upscale_device("a photo of a cat", imgs, num_inference_steps=args.steps)  # noqa: E731
+        serve = lambda: pipe.upscale_device("a photo of a cat", imgs, num_inference_steps=args.steps,  # noqa: E731
+                                            enc_interval=args.enc_interval)
     else:
         from dgm_img_super_resolution_tpu_torch.core.config import Hparams
         from dgm_img_super_resolution_tpu_torch.inference import SRDiffPipeline
 
-        hp = Hparams(sampler="ddim", sample_timesteps=args.steps, ddim_eta=1.0, compute_dtype="bfloat16")
+        hp = Hparams(sampler="ddim", sample_timesteps=args.steps, ddim_eta=1.0, compute_dtype="bfloat16",
+                     enc_interval=args.enc_interval)
         pipe = SRDiffPipeline(hp)
         serve = lambda: pipe.upscale_batch_device(imgs, as_uint8=True)  # noqa: E731
     serve()
@@ -102,7 +106,8 @@ def profile_serve(args) -> int:
         c = kernel_class(a.key)
         by_class[c] = by_class.get(c, 0.0) + a.device_time_total / 1e3
     card = torch.cuda.get_device_name(0)
-    print(f"{card}: {args.model} config {args.config} batch {batch} LR {lr}, ddim{args.steps}: wall {wall_ms:.1f} ms (profiled), "
+    print(f"{card}: {args.model} config {args.config} batch {batch} LR {lr}, ddim{args.steps} enc_interval "
+          f"{args.enc_interval}: wall {wall_ms:.1f} ms (profiled), "
           f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), {len(kernels)} kernel names")
     for c, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {c:36s} {ms:9.1f} ms  {100 * ms / max(busy_ms, 1e-9):5.1f}% of device time")
@@ -113,6 +118,7 @@ def profile_serve(args) -> int:
         args.out.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(args.out / f"torch_port_profile_{args.model}_{args.config}.json"))
     print(json.dumps({"card": card, "model": args.model, "config": args.config, "batch": batch, "lr": lr, "steps": args.steps,
+                      "enc_interval": args.enc_interval,
                       "wall_ms": wall_ms,
                       "device_busy_ms": busy_ms, "by_class_ms": by_class,
                       "top": [[a.key[:80], a.device_time_total / 1e3, a.count] for a in top[:10]]}))
