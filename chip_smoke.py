@@ -94,6 +94,25 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
 9. The published-width UNet in float32 on the card and on the CPU at latent
    32x32 (plain attention), and one level-3 Transformer2D on 32x32 tokens
    (the flash kernel on the card, its plain version on the CPU).
+10. From a checkpoint file to a scored image (``phase_checkpoint_cli``): an
+   upstream-format SRDiff checkpoint of the full-width model (seeded random
+   weights, the diffusion buffers beside them) loaded by
+   ``SRDiffPipeline(ckpt_path=...)`` serves a batch of 8 and one image at
+   128 -> 512 (ddim20 eta 1, bf16) bit for bit as the pipeline built from
+   the same state dict, 20 launches of rows 1-3 a batch; the CLI's
+   ``infer``, ``eval``, ``test --check-op-point`` (2 images) and ``interp``
+   run on the card from that file, each with its launches counted (20 a
+   ddim20 serve, 100 + 20 an image of the operating-point check, 99 the
+   interpolation chain from t = 98 to 0) and its wall time; ``psnr``,
+   ``ssim_eval`` and LPIPS (seeded random weights from an ``.npz``) on the
+   card against the CPU in float32 (``METRIC_TOL``), and the time of
+   ``Measure.measure`` at 512x512.
+11. The SD x4-upscaler from a local diffusers directory
+   (``phase_sd_local_checkpoint``): the published-width random weights
+   written as float16 safetensors with the scheduler configs, loaded by
+   ``load_sd_x4_pipeline`` on the card and served at LR 256 bit for bit as
+   the pipeline built in memory from the same float16-rounded weights, with
+   120 flash launches; write, load and serve seconds.
 
 Any failure exits non-zero. The line before the last is the kernel table
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -1891,6 +1910,279 @@ def phase_sd_card_vs_cpu():
     return res, failures
 
 
+# The checkpoint-to-scored-image path (phase_checkpoint_cli): the ddim20 eta 1
+# serving point as the CLI's hparams; METRIC_TOL holds the card's psnr and
+# LPIPS (relative) and ssim_eval (absolute) against the CPU's in float32 with
+# TF32 off: the SSIM's u^2 - mu^2 variances cancel, so their float32 sums in
+# another order differ by some 1e-6 of 255^2-scaled terms.
+SERVE_HP = "sampler=ddim,sample_timesteps=20,ddim_eta=1.0"
+METRIC_TOL = 1e-4
+# rows 1-3 per UNet call; the CLI's paths in UNet calls: a ddim20 serve is
+# 20, interp's chain from t = T-1 = 99 runs t = 98 .. 0 (99 calls), the
+# operating-point check runs the T = 100 chain and ddim20 on each image
+CLI_ROWS = ("block_chain3_stem", "block_chain3", "tail_fuse")
+OP_POINT_IMAGES = 2
+
+
+def _cli(argv) -> tuple[int, list[str], float]:
+    """One run of the port's CLI: (exit code, its stdout lines, seconds)."""
+    import io
+
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.apps.cli import main as cli_main
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    for ln in lines:
+        print(f"  {ln}", flush=True)
+    return rc, lines, dt
+
+
+def _random_lpips_npz(path, seed=11):
+    """Seeded random LPIPS weights in the JAX package's ``.npz`` layout."""
+    import numpy as np
+
+    g = np.random.default_rng(seed)
+    convs = {"conv1": (11, 3, 64), "conv2": (5, 64, 192), "conv3": (3, 192, 384), "conv4": (3, 384, 256),
+             "conv5": (3, 256, 256)}
+    arrays = {}
+    for name, (k, cin, cout) in convs.items():
+        arrays[f"params/alex/{name}/kernel"] = (g.standard_normal((k, k, cin, cout)) / np.sqrt(k * k * cin))
+        arrays[f"params/alex/{name}/bias"] = 0.1 * g.standard_normal(cout)
+    for i, c in enumerate((64, 192, 384, 256, 256)):
+        arrays[f"params/lin{i}/kernel"] = np.abs(g.standard_normal((1, 1, c, 1))) / c
+    np.savez(path, **{k: v.astype(np.float32) for k, v in arrays.items()})
+
+
+def phase_checkpoint_cli(rows):
+    """From a checkpoint file to a scored image on the card: an upstream-
+    format SRDiff checkpoint of the full-width model (seeded random
+    weights) loaded by ``SRDiffPipeline(ckpt_path=...)`` serves bit for bit
+    as the pipeline built from the same state dict; the CLI's ``infer``,
+    ``eval``, ``test --check-op-point`` and ``interp`` on the card from that
+    file, launches counted per subcommand; ``psnr``, ``ssim_eval`` and LPIPS
+    on the card against the CPU, and ``Measure.measure``'s time at 512^2."""
+    import json as _json
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from dgm_img_super_resolution_tpu_torch.core.config import set_hparams
+    from dgm_img_super_resolution_tpu_torch.diffusion.schedule import BUFFERS
+    from dgm_img_super_resolution_tpu_torch.inference import SRDiffPipeline
+    from dgm_img_super_resolution_tpu_torch.metrics import Measure, psnr, ssim_eval
+    from dgm_img_super_resolution_tpu_torch.metrics.lpips import LPIPS
+    from dgm_img_super_resolution_tpu_torch.models.factory import build_srdiff, init_srdiff_params
+    from dgm_img_super_resolution_tpu_torch.ops.resize import imresize
+
+    failures, res = [], {}
+    counters = _counters()
+    hp = set_hparams("", "", SERVE_HP)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # -- the checkpoint file, in the upstream format
+        sd = init_srdiff_params(build_srdiff(hp), seed=7).state_dict()
+        model = {f"model.{k}": v for k, v in sd.items()}
+        model.update({f"model.{b}": torch.linspace(0, 1, hp["timesteps"], dtype=torch.float64) for b in BUFFERS})
+        model["model.ssim_loss.window"] = torch.ones(1, 1, 11, 11)
+        ckpt = tmp / "model_ckpt_steps_400000.ckpt"
+        torch.save({"state_dict": {"model": model}, "global_step": 400000}, ckpt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        from_file = SRDiffPipeline(hp, ckpt_path=str(ckpt))
+        torch.cuda.synchronize()
+        res["ckpt_load_s"] = time.perf_counter() - t0
+        in_memory = SRDiffPipeline(hp, params=sd)
+        imgs = np.random.default_rng(12).integers(0, 256, (8, SERVE_LR, SERVE_LR, 3), dtype=np.uint8)
+        from_file.upscale_batch_device(imgs, as_uint8=True)  # warm-up
+        want = {k: v for k, v in SERVE_LAUNCHES["default"].items()}
+        for n in (8, 1):
+            out_f, dt, launches = _serve(from_file, imgs[:n], counters)
+            out_m, _, _ = _serve(in_memory, imgs[:n], counters)
+            launches = {k: v for k, v in launches.items() if v}
+            same = bool(torch.equal(out_f, out_m)) and tuple(out_f.shape) == (n, 4 * SERVE_LR, 4 * SERVE_LR, 3)
+            ok = same and launches == want
+            print(f"SRDiff from the checkpoint file, batch {n} {SERVE_LR}->{4 * SERVE_LR} ddim20 bf16: {dt:.3f} s, "
+                  f"bit-equal to the in-memory pipeline {same}, launches {launches} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                failures.append(f"checkpoint serve batch {n}: bit-equal {same}, launches {launches}, expected {want}")
+            res[f"ckpt_serve_b{n}"] = {"s": dt, "bit_equal": same, "launches": launches}
+            _note_launches(rows, f"ckpt_file_batch{n}", launches)
+        print(f"checkpoint load (torch.load, strict load_state_dict, to the card): {res['ckpt_load_s']:.3f} s",
+              flush=True)
+        sr8 = out_f
+        del from_file, in_memory
+
+        # -- the CLI on the card, from that file
+        g = np.random.default_rng(13)
+        yy, xx = np.mgrid[0:512, 0:512] / 512.0
+        hrs = []
+        for i in range(OP_POINT_IMAGES):
+            smooth = np.stack([np.sin((7 + i) * yy + 3 * xx), np.cos(5 * xx * yy + i), np.sin(11 * xx - i)], -1)
+            hr = np.clip((smooth * 0.5 + 0.5) * 255 + g.normal(0, 8, smooth.shape), 0, 255).round().astype(np.uint8)
+            (tmp / "hr").mkdir(exist_ok=True)
+            Image.fromarray(hr).save(tmp / "hr" / f"img{i}.png")
+            hrs.append(hr)
+        Image.fromarray(imgs[0]).save(tmp / "lr.png")
+        common = ["--ckpt", str(ckpt), "-hp", SERVE_HP]
+        per_serve = {k: SERVE_LAUNCHES["default"][k] for k in CLI_ROWS}
+        runs = {
+            "infer": (["infer", str(tmp / "lr.png"), str(tmp / "sr.png")], 1 * 20),
+            "eval": (["eval", str(tmp / "hr" / "img0.png")], 1 * 20),
+            "test_op_point": (["test", str(tmp / "hr"), "--gen_dir", str(tmp / "gen"), "--check-op-point",
+                               "--op-point-images", str(OP_POINT_IMAGES)],
+                              OP_POINT_IMAGES * 20 + OP_POINT_IMAGES * (hp["timesteps"] + 20)),
+            "interp": (["interp", str(tmp / "hr" / "img0.png"), str(tmp / "hr" / "img1.png"), str(tmp / "mix.png")],
+                       hp["timesteps"] - 1),
+        }
+        for name, (argv, calls) in runs.items():
+            _reset_counts(counters)
+            rc, lines, dt = _cli(argv + common)
+            launches = {k: v for k, v in _read_counts(counters).items() if v}
+            want = {k: calls * v // 20 for k, v in per_serve.items()}
+            want.update({f"{k}_wgmma": n for k, n in want.items()})
+            want["block_chain3_c64"] = want["block_chain3"]
+            ok = rc == 0 and launches == want
+            detail = ""
+            if name in ("infer", "interp"):
+                out = np.asarray(Image.open(tmp / ("sr.png" if name == "infer" else "mix.png")))
+                ok = ok and out.shape == (512, 512, 3)
+                detail = f"output {out.shape}"
+            elif name == "eval":
+                metrics = _json.loads(lines[-1])
+                finite = all(np.isfinite(metrics[k]) for k in ("psnr", "ssim", "lr_psnr"))
+                ok = ok and finite and np.isnan(metrics["lpips"])
+                detail = f"metrics {metrics}"
+                res["eval_metrics"] = metrics
+            else:
+                check = _json.loads((tmp / "gen" / "op_point_check.json").read_text())
+                gen = sorted(p.name for p in (tmp / "gen").iterdir())
+                ok = ok and gen == [f"img{i}.png" for i in range(OP_POINT_IMAGES)] + ["op_point_check.json"]
+                detail = f"op-point check {check} (within_tol reported, not gated: random weights)"
+                res["op_point_check"] = check
+            print(f"CLI {name} on the card from the checkpoint: rc {rc}, {dt:.3f} s, launches {launches} "
+                  f"(expected {want}), {detail} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"CLI {name}: rc {rc}, launches {launches}, expected {want}, {detail}")
+            res[f"cli_{name}"] = {"rc": rc, "s": dt, "launches": launches}
+            _note_launches(rows, f"cli_{name}", launches)
+
+        # -- the metrics on the card against the CPU, float32 with TF32 off
+        npz = tmp / "lpips.npz"
+        _random_lpips_npz(npz)
+        sr, hr = sr8[0].cpu().numpy(), hrs[0]
+        tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            a_c, b_c = (torch.from_numpy(v).cuda().float() for v in (sr, hr))
+            vals = {"psnr": (float(psnr(a_c, b_c)), float(psnr(torch.from_numpy(sr).float(),
+                                                               torch.from_numpy(hr).float())), "rel"),
+                    "ssim_eval": (ssim_eval(a_c, b_c), ssim_eval(sr, hr), "abs"),
+                    "lpips": (LPIPS.maybe_create(str(npz), "cuda")(sr, hr), LPIPS.maybe_create(str(npz), "cpu")(sr, hr),
+                              "rel")}
+            for name, (card, cpu, kind) in vals.items():
+                err = abs(card - cpu) / (abs(cpu) if kind == "rel" else 1.0)
+                ok = err <= METRIC_TOL and np.isfinite(card)
+                print(f"metric {name} at 512^2, card {card:.8f} vs CPU {cpu:.8f}: {kind} err {err:.3e} "
+                      f"{'ok' if ok else 'FAIL'} (tol {METRIC_TOL})", flush=True)
+                if not ok:
+                    failures.append(f"metric {name}: card {card} vs CPU {cpu}")
+                res[f"metric_{name}"] = {"card": card, "cpu": cpu, "err": err}
+            lr = imgs[0]
+            t0 = time.perf_counter()
+            for _ in range(5):
+                imresize(sr, scale=0.25)
+            res["imresize_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+            print(f"imresize (MATLAB bicubic, numpy float64 on the host) 512^2 -> 128^2: {res['imresize_ms']:.2f} ms",
+                  flush=True)
+            for label, m in (("no LPIPS weights", Measure(device="cuda")),
+                             ("with LPIPS", Measure(lpips_weights=str(npz), device="cuda"))):
+                ms = cuda_ms(lambda: m.measure(sr, hr, lr, 4), iters=5)
+                res[f"measure_ms_{'lpips' if 'with' in label else 'plain'}"] = ms
+                print(f"Measure.measure at 512^2 on the card ({label}; psnr, ssim, lr_psnr with the host's "
+                      f"MATLAB resize): {ms:.2f} ms", flush=True)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    return res, failures
+
+
+def phase_sd_local_checkpoint(rows):
+    """The SD x4-upscaler from a local diffusers directory: the published-
+    width random state dicts of ``phase_sd_serve``'s pipeline (seed 0),
+    written in float16 safetensors with the scheduler configs, loaded by
+    ``load_sd_x4_pipeline`` on the card, and served at LR 256 bit for bit
+    as the pipeline built in memory from the same float16-rounded dicts."""
+    import tempfile
+
+    import torch
+    from safetensors.torch import save_file
+
+    from dgm_img_super_resolution_tpu_torch.ckpt.sd_import import load_sd_x4_pipeline
+    from dgm_img_super_resolution_tpu_torch.ckpt.sd_inventory import (
+        X4_LOW_RES_SCHEDULER_CONFIG,
+        X4_SCHEDULER_CONFIG,
+    )
+    from dgm_img_super_resolution_tpu_torch.models.sd.pipeline import StableDiffusionUpscalePipeline
+
+    failures, res = [], {}
+    files = {"unet": "diffusion_pytorch_model.safetensors", "vae": "diffusion_pytorch_model.safetensors",
+             "text_encoder": "model.safetensors"}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        src = StableDiffusionUpscalePipeline(seed=0, dtype=torch.float16)
+        sds = {c: {k: v.cpu().contiguous() for k, v in getattr(src, c).state_dict().items()} for c in files}
+        del src
+        sds["text_encoder"]["text_model.embeddings.position_ids"] = torch.arange(77)[None]  # dropped on load
+        t0 = time.perf_counter()
+        for comp, name in files.items():
+            (tmp / comp).mkdir()
+            save_file(sds[comp], str(tmp / comp / name))
+        for sub, cfg in (("scheduler", X4_SCHEDULER_CONFIG), ("low_res_scheduler", X4_LOW_RES_SCHEDULER_CONFIG)):
+            (tmp / sub).mkdir()
+            (tmp / sub / "scheduler_config.json").write_text(json.dumps(cfg))
+        res["write_s"] = time.perf_counter() - t0
+        res["bytes"] = sum(p.stat().st_size for p in tmp.rglob("*.safetensors"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_sd_x4_pipeline(str(tmp))
+        torch.cuda.synchronize()
+        res["load_s"] = time.perf_counter() - t0
+    del sds["text_encoder"]["text_model.embeddings.position_ids"]
+    ref = StableDiffusionUpscalePipeline({c: {k: v.float() for k, v in sd.items()} for c, sd in sds.items()})
+    del sds
+    lr, steps = SD_LR, 20
+    gen = lambda: torch.Generator(device="cuda").manual_seed(21)  # noqa: E731
+    _sd_serve(loaded, lr, 2, generator=gen())  # warm-up
+    out_l, dt, launches = _sd_serve(loaded, lr, steps, generator=gen())
+    out_r, dt_r, _ = _sd_serve(ref, lr, steps, generator=gen())
+    launches = {k: v for k, v in launches.items() if v}
+    same = bool(torch.equal(out_l, out_r)) and tuple(out_l.shape) == (1, 4 * lr, 4 * lr, 3)
+    want = {"flash_attention": 6 * steps}
+    ok = same and launches == want
+    res.update({"serve_s": dt, "in_memory_serve_s": dt_r, "bit_equal": same, "launches": launches})
+    _note_launches(rows, f"sd_local_dir_lr{lr}", launches)
+    print(f"SD x4 from a local float16 diffusers directory ({res['bytes'] / 2**30:.2f} GiB of safetensors): write "
+          f"{res['write_s']:.2f} s, load_sd_x4_pipeline {res['load_s']:.2f} s, serve LR {lr} -> {4 * lr} ddim{steps} "
+          f"{dt:.3f} s (in-memory {dt_r:.3f} s), bit-equal {same}, launches {launches} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        failures.append(f"SD local directory: bit-equal {same}, launches {launches}, expected {want}")
+    del loaded, ref
+    torch.cuda.empty_cache()
+    return res, failures
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None, help="directory for the full results")
@@ -1928,8 +2220,10 @@ def main() -> int:
     rows += [flash_row, gn_row]
     sd, f7 = phase_sd_serve([flash_row, gn_row])
     sd_opts, f7b = phase_sd_options(rows)
+    ckpt_cli, f9 = phase_checkpoint_cli(rows)
+    sd_local, f10 = phase_sd_local_checkpoint(rows)
     sd_e2e, f8 = phase_sd_card_vs_cpu()
-    failures += f3 + f3c + f3b + f4 + f4b + f5 + f6 + f7 + f7b + f8
+    failures += f3 + f3c + f3b + f4 + f4b + f5 + f6 + f7 + f7b + f9 + f10 + f8
     missing = [row["name"] for row in rows if row["launches"] is None]
     if missing:
         failures.append(f"no launch count for {missing}")
@@ -1937,8 +2231,8 @@ def main() -> int:
     if args.out:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "kernels": rows, "pipeline": pipe, "serving_paths": paths, "bf16_forward": fwd16,
-             "card_vs_cpu": e2e, "backward": bwd, "sd": sd, "sd_options": sd_opts, "sd_card_vs_cpu": sd_e2e,
-             "failures": failures}, indent=1))
+             "card_vs_cpu": e2e, "backward": bwd, "sd": sd, "sd_options": sd_opts, "checkpoint_cli": ckpt_cli,
+             "sd_local_checkpoint": sd_local, "sd_card_vs_cpu": sd_e2e, "failures": failures}, indent=1))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1

@@ -16,6 +16,12 @@ package's ``ckpt/torch_import.py:32-158`` and ``:206``, run the other way).
 - the mid attention's gate ``mid_attn_g`` -> ``mid_attn.fn.g`` and its
   1x1 convs ``mid_attn/{to_qkv,to_out}`` -> ``mid_attn.fn.fn.*`` (the
   reference's ``Residual(Rezero(LinearAttention))``).
+
+``jax_conv_params_to_state_dict`` carries the metrics' conv stacks across,
+the JAX package's LPIPS (``metrics/lpips.py``) and VGG19
+(``metrics/perceptual.py``) Flax trees, whose port modules keep the Flax
+module names; ``jax_npz_to_state_dict`` reads such a tree from the JAX
+package's ``.npz`` weight files ('/'-joined keys).
 """
 
 from __future__ import annotations
@@ -127,3 +133,37 @@ def jax_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
             arr = tr(arr)
         out[f"{root}.{name}.{_LEAVES[leaf]}"] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
+
+
+def jax_conv_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """A Flax tree of convs (LPIPS, VGG19; nested dicts of arrays, with or
+    without its ``params`` root) -> the port's float32 ``state_dict`` under
+    the same module names: HWIO kernels -> (O, I, kh, kw) weights, biases
+    as they are."""
+    out: dict[str, torch.Tensor] = {}
+    for path, v in _flatten(params):
+        if path[0] == "params":
+            path = path[1:]
+        arr = np.asarray(v, dtype=np.float32)
+        if path[-1] == "kernel" and arr.ndim == 4:
+            arr, leaf = _conv(arr), "weight"
+        elif path[-1] == "bias":
+            leaf = "bias"
+        else:
+            raise KeyError(f"cannot carry JAX param {'/'.join(path)} across")
+        out[".".join(path[:-1] + (leaf,))] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def jax_npz_to_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """The JAX package's ``.npz`` of a metric's Flax tree ('/'-joined keys)
+    -> the port's ``state_dict``."""
+    with np.load(path) as raw:
+        tree: dict = {}
+        for key in raw.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = raw[key]
+    return jax_conv_params_to_state_dict(tree)

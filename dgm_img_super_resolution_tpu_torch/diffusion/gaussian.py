@@ -20,8 +20,12 @@ Encoder propagation (``ddim_sample(..., enc_interval=K)``): the UNet's down
 path runs at the first timestep of each group of K DDIM steps and its
 features are reused by the K decodes of the group, each at its own
 timestep; a remainder of the steps that K does not divide runs exactly, per
-step, at the low-t end. ``interpolate`` and the training losses are not
-ported yet.
+step, at the low-t end.
+
+``interpolate`` mixes two images' ``q_sample`` at one timestep t and runs
+the ancestral chain from t-1 down to 0 on the first image's condition;
+its noise is ``(eps_1, eps_2, {t: eps_t})`` or drawn from a generator. The
+training losses are not ported yet.
 """
 
 from __future__ import annotations
@@ -196,6 +200,34 @@ class GaussianDiffusion(nn.Module):
             x = self.ddim_segment_encprop(x, cond, img_lr_up, ts[:n_div], ts_prev[:n_div], hook, eta, K)
         x = self.ddim_segment(x, cond, img_lr_up, ts[n_div:], ts_prev[n_div:], hook, eta)
         return self.res2img(x, img_lr_up), rrdb_out
+
+    def interpolate(self, x1, x2, img_lr, img_lr_up, t: int | None = None, lam: float = 0.5, noise=None,
+                    generator=None):
+        """Latent mixing between two HR images x1, x2 (NCHW, [-1, 1])
+        conditioned on ``img_lr`` (reference ``model.py:1093-1116``):
+        ``(1 - lam) q(x1, t) + lam q(x2, t)``, then the ancestral chain
+        from t-1 to 0. ``noise``: ``(eps_1, eps_2, {t: eps_t})`` for the
+        two ``q_sample`` draws and the steps; ``None`` draws them from
+        ``generator``."""
+        b = x1.shape[0]
+        t = self.num_timesteps - 1 if t is None else int(t)
+        if noise is None:
+            def hook(_t=None):
+                return torch.randn(tuple(x1.shape), generator=generator, device=x1.device)
+
+            e1, e2 = hook(), hook()
+        else:
+            e1, e2, steps = noise
+            hook = lambda ti: steps[int(ti)]  # noqa: E731
+        _, cond = self.rrdb_cond(img_lr, img_lr_up)
+        cond = self.denoise_fn.project(cond, img_lr_up)
+        tb = torch.full((b,), t, dtype=torch.long)
+        xt1 = self.q_sample(self.img2res(x1, img_lr_up), tb, e1.to(x1.device, torch.float32))
+        xt2 = self.q_sample(self.img2res(x2, img_lr_up), tb, e2.to(x1.device, torch.float32))
+        lam32 = np.float32(lam)  # the mixing weights in float32, as JAX's
+        x = float(np.float32(1.0) - lam32) * xt1 + float(lam32) * xt2
+        x = self.sample_segment(x, cond, img_lr_up, range(t - 1, -1, -1), hook)
+        return self.res2img(x, img_lr_up)
 
     # ------------------------------------------------------- residual regime
     def res2img(self, img_, img_lr_up):

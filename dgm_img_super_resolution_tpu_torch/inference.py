@@ -1,5 +1,5 @@
 """End-to-end SRDiff serving pipeline (counterpart of the JAX package's
-``inference.py:49-468``, less ``interpolate``).
+``inference.py:49-468``).
 
 ``SRDiffPipeline.upscale_batch_device`` does, in order: uint8 -> [-1, 1];
 reflect-pad the LR batch to the UNet's 2^stages divisibility (edge padding
@@ -25,6 +25,12 @@ several calls takes a ``ChunkNoise``, which gives each call its own hook
 by the chunk indices that lead to it, as the JAX package folds them into
 its key; without one, each chunk draws from a generator seeded by a draw
 from its parent's generator.
+
+Weights: a state dict under the reference checkpoint's names, the upstream
+checkpoint file itself (``ckpt_path``, through
+``ckpt/torch_import.py:import_srdiff_checkpoint``), or a seeded random
+init. ``interpolate`` mixes two HR images in the diffusion's latent space
+(the reference's ``style_interp``).
 """
 
 from __future__ import annotations
@@ -90,15 +96,21 @@ def _scaled(progress_cb: ProgressCb | None, i: int, n: int) -> ProgressCb | None
 
 class SRDiffPipeline:
     def __init__(self, hp: Hparams | None = None, params: Mapping[str, torch.Tensor] | None = None,
-                 device: str | torch.device | None = None, generator: torch.Generator | None = None):
+                 device: str | torch.device | None = None, generator: torch.Generator | None = None,
+                 ckpt_path: str | None = None):
         """``params``: a ``state_dict`` of the SRDiff stack under the
         reference checkpoint's names (``denoise_fn.*``, ``rrdb.*``), loaded
-        strictly; ``None`` makes a random init seeded by ``hp['seed']``.
-        ``generator`` draws the sampler noise; by default one on ``device``
-        seeded by ``hp['seed']``."""
+        strictly; else the upstream checkpoint at ``ckpt_path``; else a
+        random init seeded by ``hp['seed']``. ``generator`` draws the
+        sampler noise; by default one on ``device`` seeded by
+        ``hp['seed']``."""
         self.hp = hp or Hparams()
         self.device = resolve_device(device)
         model = build_srdiff(self.hp)
+        if params is None and ckpt_path:
+            from dgm_img_super_resolution_tpu_torch.ckpt.torch_import import import_srdiff_checkpoint
+
+            params, _ = import_srdiff_checkpoint(ckpt_path)
         if params is None:
             init_srdiff_params(model, seed=int(self.hp["seed"]))
         else:
@@ -242,6 +254,30 @@ class SRDiffPipeline:
                                       noise=noise, progress_cb=progress_cb, callback_steps=callback_steps)
         return self.upscale_batch(img[None], generator, noise=noise, progress_cb=progress_cb,
                                   callback_steps=callback_steps)[0]
+
+    @torch.inference_mode()
+    def interpolate(self, img1, img2, lam: float = 0.5, t: int | None = None,
+                    generator: torch.Generator | None = None, noise=None) -> np.ndarray:
+        """Latent mixing between two same-shape HR images, conditioned on the
+        LR of the first (MATLAB bicubic down by ``sr_scale``, torch bicubic
+        back up). HWC uint8 or [-1, 1] float in; HWC float [0, 1] out.
+        ``t`` defaults to T-1; ``noise`` as ``GaussianDiffusion.interpolate``
+        takes it (NCHW at the HR shape)."""
+        def pm1(img):
+            x = img if isinstance(img, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(img))
+            x = x.to(self.device)
+            x = uint8_to_pm1(x) if x.dtype == torch.uint8 else x.to(torch.float32)
+            return x.permute(2, 0, 1)[None]
+
+        x1, x2 = pm1(img1), pm1(img2)
+        h, w = x1.shape[-2:]
+        scale = self.hp["sr_scale"]
+        lr = resize(x1, (h // scale, w // scale), variant="matlab")
+        lr_up = resize(lr, (h, w), variant="torch")
+        t = self.hp["timesteps"] - 1 if t is None else int(t)
+        out = self.model.interpolate(x1, x2, lr, lr_up, t=t, lam=lam, noise=noise,
+                                     generator=generator or self.generator)
+        return (out * 0.5 + 0.5).clamp(0.0, 1.0)[0].permute(1, 2, 0).cpu().numpy()
 
     @torch.inference_mode()
     def upscale_large_device(self, image, patch: int = 64, overlap: int = 0,

@@ -87,14 +87,17 @@ class StableDiffusionUpscalePipeline:
                  unet_config: dict = X4_UNET_CONFIG, vae_config: dict = X4_VAE_CONFIG,
                  text_config: dict = X4_TEXT_CONFIG, dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device | None = None, seed: int = 0,
-                 scheduler_config: dict | None = None, low_res_scheduler_config: dict | None = None):
+                 scheduler_config: dict | None = None, low_res_scheduler_config: dict | None = None,
+                 tokenizer: SimpleTokenizer | None = None):
         """``params``: ``{"unet": ..., "vae": ..., "text_encoder": ...}``
         state dicts (float32) under the published names; ``None`` draws
         random weights from ``seed``. The configs default to the published
         ones; ``scheduler_config`` and ``low_res_scheduler_config`` override
-        keys of the published scheduler configs. The noise comes from a
-        generator on ``device`` seeded by ``seed`` unless a call brings its
-        own."""
+        keys of the published scheduler configs. ``tokenizer`` defaults to
+        the hash-bucket ``SimpleTokenizer`` (no vocabulary files); pass one
+        built from the published BPE files for the exact tokens. The noise
+        comes from a generator on ``device`` seeded by ``seed`` unless a
+        call brings its own."""
         self.device = resolve_device(device)
         self.dtype = dtype
         with torch.device(self.device):
@@ -108,9 +111,8 @@ class StableDiffusionUpscalePipeline:
             else:
                 m.load_state_dict(params[name], strict=True)
             m.to(self.dtype).eval().requires_grad_(False)
-        # the hash-bucket fallback until the published BPE vocab is in the repo
-        self.tokenizer = SimpleTokenizer(vocab_size=text_config["vocab_size"],
-                                         max_len=text_config["max_position_embeddings"])
+        self.tokenizer = tokenizer if tokenizer is not None else SimpleTokenizer(
+            vocab_size=text_config["vocab_size"], max_len=text_config["max_position_embeddings"])
         sc = dict(X4_SCHEDULER_CONFIG, **(scheduler_config or {}))
         lrc = dict(X4_LOW_RES_SCHEDULER_CONFIG, **(low_res_scheduler_config or {}))
         self.schedule = _schedule_from_config(sc)  # denoising: the latent betas

@@ -31,6 +31,12 @@ def pm1_to_uint8(x) -> np.ndarray:
     return np.round(np.clip(y, 0, 255)).astype(np.uint8)
 
 
+def unit_to_uint8(x: np.ndarray) -> np.ndarray:
+    """A served image, float [0, 1], -> uint8: clipped, x 255, rounded (the
+    command line's and the apps' PNG convention)."""
+    return (np.clip(x, 0, 1) * 255).round().astype(np.uint8)
+
+
 def extract_patches(x: torch.Tensor, patch: int, stride: int | None = None):
     """Split NCHW into a grid of ``patch``-square patches; returns
     ``(patches, (gy, gx))``. With ``stride == patch`` (the default) H and W

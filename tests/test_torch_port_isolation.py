@@ -81,6 +81,39 @@ def test_new_serving_paths_run_with_jax_blocked():
     assert out.stdout.split() == "(3, 32, 32, 3) (48, 48, 3) (8, 8) True".split()
 
 
+def test_cli_runs_with_jax_blocked(tmp_path):
+    """Every subcommand of the port's CLI (the checkpoint import, the
+    metrics, the MATLAB resize, interpolate and the operating-point check
+    included) runs in a process where JAX cannot be imported."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'flax', 'dgm_img_super_resolution_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import json, os, numpy as np, torch\n"
+        "from PIL import Image\n"
+        "from dgm_img_super_resolution_tpu_torch.apps.cli import main\n"
+        "from dgm_img_super_resolution_tpu_torch.core.config import Hparams\n"
+        "from dgm_img_super_resolution_tpu_torch.inference import SRDiffPipeline\n"
+        "hp = 'hidden_size=8,rrdb_num_block=2,rrdb_num_feat=8,timesteps=4,unet_dim_mults=1|2,compute_dtype=float32'\n"
+        "tiny = dict(hidden_size=8, rrdb_num_block=2, rrdb_num_feat=8, timesteps=4, unet_dim_mults='1|2',\n"
+        "            compute_dtype='float32')\n"
+        "sd = SRDiffPipeline(Hparams(tiny), device='cpu').model.state_dict()\n"
+        f"d = {str(tmp_path)!r}\n"
+        "torch.save({'state_dict': {'model': {'model.' + k: v for k, v in sd.items()}}}, d + '/m.ckpt')\n"
+        "os.makedirs(d + '/hr')\n"
+        "Image.fromarray(np.full((16, 16, 3), 90, np.uint8)).save(d + '/hr/a.png')\n"
+        "cpu = ['-hp', hp, '--device', 'cpu', '--ckpt', d + '/m.ckpt']\n"
+        "rcs = [main(['infer', d + '/hr/a.png', d + '/sr.png'] + cpu), main(['eval', d + '/hr/a.png'] + cpu),\n"
+        "       main(['test', d + '/hr', '--gen_dir', d + '/gen', '--check-op-point'] + cpu),\n"
+        "       main(['interp', d + '/hr/a.png', d + '/hr/a.png', d + '/mix.png'] + cpu)]\n"
+        "print('RCS', rcs, sorted(os.listdir(d + '/gen')), np.asarray(Image.open(d + '/sr.png')).shape)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    last = out.stdout.strip().splitlines()[-1]
+    assert last == "RCS [0, 0, 0, 0] ['a.png', 'op_point_check.json'] (64, 64, 3)"
+
+
 def test_cpu_regions_leave_the_launch_counters_alone():
     from chip_smoke import Regions
     from dgm_img_super_resolution_tpu_torch.ops.kernels import block_chain as bc

@@ -170,7 +170,8 @@ def test_image_value_range_and_resize():
     np.testing.assert_array_equal(ti.pm1_to_uint8(torch.from_numpy(f)), ji.pm1_to_uint8(f))
     x = np.random.default_rng(3).uniform(-1, 1, (2, 7, 9, 3)).astype(np.float32)
     ref = jax_resize(jnp.asarray(x), (28, 36), variant="torch")
-    np.testing.assert_allclose(nhwc(tr.resize(nchw(x), (28, 36))), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(nhwc(tr.resize(nchw(x), (28, 36), variant="torch")), np.asarray(ref),
+                               rtol=1e-5, atol=1e-6)
     ref = jax_nearest_upsample(jnp.asarray(x), 2)
     np.testing.assert_array_equal(nhwc(tr.nearest_upsample(nchw(x), 2)), np.asarray(ref))
 
