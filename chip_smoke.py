@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (SRDiff x4 and SD x4-upscaler serving) on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port (SRDiff x4 and SD x4-upscaler serving, SRDiff training) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -113,6 +113,19 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    ``load_sd_x4_pipeline`` on the card and served at LR 256 bit for bit as
    the pipeline built in memory from the same float16-rounded weights, with
    120 flash launches; write, load and serve seconds.
+12. SRDiff training (``phase_train``) at full width, batch 64 of 160x160
+   HR crops in bf16, through ``SRDiffTask``, ``Trainer.fit``,
+   ``DIV2KDataset`` and ``DataLoader``: one training loss and its
+   gradients at B = 2 with two different timesteps, float32 on the card
+   against the CPU and bf16 against the same step with every region off;
+   ``fit`` over 64 PNGs written from a seed (12 updates, validation at 0, 6
+   and 12, keep 2), then a resume to 16 (the restored state equal to the
+   saved one, Adam's count and the learning rate going on, two checkpoints
+   left); ten updates on one batch lowering its loss; the launches of rows
+   1-3 (rows 4, 5 and 3 under A) exactly one per training forward and per
+   validation batch, none from backward; the step's time fed by the loader
+   and with the batch ready, HR crops/s, the loader's share, the peak
+   memory and the checkpoint save.
 
 Any failure exits non-zero. The line before the last is the kernel table
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -2183,6 +2196,398 @@ def phase_sd_local_checkpoint(rows):
     return res, failures
 
 
+# The training path (phase_train): SRDiff at full width (hidden 64, mults
+# 1|2|3|4, RRDB 8 x 32, fix_rrdb, T = 100, l1, Adam lr 2e-4, clip 10), batch 64
+# of 160x160 HR crops in bf16, through SRDiffTask, Trainer.fit, DIV2KDataset
+# and DataLoader. Each training forward runs rows 1-3 once (row 1 at 160^2,
+# row 2 at C = 64 on 80^2, row 3 80^2 -> 160^2) and each validation batch's
+# forward too; backward recomputes their plain versions and launches none.
+TRAIN_HR, TRAIN_BATCH, TRAIN_IMAGES = 160, 64, 64
+TRAIN_UPDATES, TRAIN_RESUME_TO, TRAIN_VAL_EVERY, TRAIN_KEEP = 12, 16, 6, 2
+TRAIN_VAL_BATCHES, TRAIN_VAL_SIZE = 2, 16  # validation batches of 16 of the PNGs, resized
+TRAIN_DESCENT_STEPS, TRAIN_TIMED_STEPS = 10, 6
+TRAIN_T = (7, 88)  # the card-vs-CPU batch's two timesteps: a kernel that reads the wrong row's tv fails
+TRAIN_HP = dict(compute_dtype="bfloat16", batch_size=TRAIN_BATCH, patch_size=TRAIN_HR, rrdb_ckpt="",
+                data_augmentation=True, num_workers=8, save_codes=[])
+
+
+def train_step_launches(cfg, dtype="bfloat16") -> dict:
+    """The launches of one training forward under ``cfg``: one UNet call's
+    share of the serve's (float32: less the calls on the conv core)."""
+    if dtype == "float32":
+        return forward_launches(cfg)
+    return {k: v // 20 for k, v in SERVE_LAUNCHES[cfg].items()}
+
+
+def _times(want: dict, n: int) -> dict:
+    return {k: v * n for k, v in want.items()}
+
+
+def write_train_pngs(d, seed, n=TRAIN_IMAGES):
+    """``n`` PNGs from ``seed``, each larger than the HR crop (so that
+    augmentation crops): smooth colour fields with noise, 176-207 px a side."""
+    import numpy as np
+    from PIL import Image
+
+    g = np.random.default_rng(seed)
+    for i in range(n):
+        h, w = (int(v) for v in g.integers(TRAIN_HR + 16, TRAIN_HR + 48, 2))
+        base = g.uniform(0, 255, (4, 4, 3))
+        yy, xx = np.meshgrid(np.linspace(0, 3, h), np.linspace(0, 3, w), indexing="ij")
+        img = base[yy.astype(int), xx.astype(int)] + g.normal(0, 24, (h, w, 3))
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(Path(d) / f"{i:04d}.png", compress_level=1)
+
+
+def _train_batch(b, hr, seed):
+    """An NHWC numpy batch in [-1, 1] from ``seed``."""
+    import numpy as np
+
+    g = np.random.default_rng(seed)
+    x = g.uniform(-1, 1, (b, hr, hr, 3)).astype(np.float32)
+    return {"hr": x, "lr": g.uniform(-1, 1, (b, hr // 4, hr // 4, 3)).astype(np.float32),
+            "lr_up": np.clip(x + 0.2 * g.standard_normal(x.shape), -1, 1).astype(np.float32)}
+
+
+def _loss_and_grads(task, model, batch, t, noise, counters=None):
+    """One loss and its gradients; with ``counters`` also the launches of
+    the forward alone and of forward plus backward."""
+    model.zero_grad(set_to_none=True)
+    if counters is not None:
+        _reset_counts(counters)
+    loss, _ = task.loss_fn(model, batch, t=t, noise=noise)
+    fwd = {k: v for k, v in _read_counts(counters).items() if v} if counters is not None else None
+    loss.backward()
+    both = {k: v for k, v in _read_counts(counters).items() if v} if counters is not None else None
+    grads = {n: p.grad.detach() for n, p in model.named_parameters() if p.grad is not None}
+    return loss.item(), grads, fwd, both
+
+
+def _global_dist(got, want) -> tuple[float, float]:
+    """max and mean |got - want| over every gradient element, each over the
+    reference's max and mean |value|."""
+    import torch
+
+    a = torch.cat([got[n].float().flatten().cpu() for n in want])
+    b = torch.cat([want[n].float().flatten().cpu() for n in want])
+    d = (a - b).abs()
+    return d.max().item() / b.abs().max().item(), d.mean().item() / b.abs().mean().item()
+
+
+def _train_card_vs_cpu(res, failures):
+    """Part 1: one training loss and its gradients of the full-width stack,
+    B = 2 at 160^2 with two different timesteps: float32 (TF32 off) on the
+    card against the CPU (loss 1e-4 relative, each gradient GRAD_TOL of its
+    tensor's max |CPU gradient|); bf16 with the regions against bf16 with
+    every region off (CUDNN_ENV) on the card: the loss and the eps at the
+    FWD_* bounds, and the gradients as the forward is bounded against
+    float32 (FWD_MAX_REL of the largest; FWD_F32_RATIO_* times the regions-
+    off bf16 gradients' distance from float32). On the CPU
+    (``tools/torch_port_train_cpu.py``: hidden 64, B = 2 at 64^2) the bf16
+    gradients with the regions lay 1.2% (max) and 3.0% (mean) from those
+    without, and 1.15% / 2.9% from float32 where the regions-off bf16 lay
+    1.16% / 3.2%. The forward's launches are one training forward's, and
+    backward adds none."""
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.train.tasks.srdiff import SRDiffTask
+    from dgm_img_super_resolution_tpu_torch.train.trainer import batch_to_device
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    counters = _counters()
+    try:
+        hp32 = Hparams(**dict(TRAIN_HP, compute_dtype="float32"))
+        task = SRDiffTask(hp32)
+        cpu = task.init_params(3)
+        sd = {k: v.clone() for k, v in cpu.state_dict().items()}
+        batch = _train_batch(2, TRAIN_HR, 4)
+        g = torch.Generator().manual_seed(5)
+        eps, eps_step = (torch.randn(2, 3, TRAIN_HR, TRAIN_HR, generator=g) for _ in range(2))
+        t = torch.tensor(TRAIN_T)
+        t0 = time.perf_counter()
+        loss_cpu, want, _, _ = _loss_and_grads(task, cpu, batch_to_device(batch, torch.device("cpu")), t,
+                                               (eps, eps_step))
+        res["cpu_f32_loss_and_grads_s"] = time.perf_counter() - t0
+        gpu_batch = batch_to_device(batch, torch.device("cuda"))
+        cl = lambda v: v.cuda().contiguous(memory_format=torch.channels_last)  # noqa: E731
+        noise = (cl(eps), cl(eps_step))
+
+        def card(dtype, env):
+            hp = Hparams(**dict(TRAIN_HP, compute_dtype=dtype))
+            tk = SRDiffTask(hp)
+            m = tk.diffusion
+            m.load_state_dict(sd)
+            m.cuda().to(memory_format=torch.channels_last)
+            with switches(**env):
+                out = _loss_and_grads(tk, m, gpu_batch, t.cuda(), noise, counters)
+                with torch.no_grad():
+                    x = m.img2res(gpu_batch["hr"], gpu_batch["lr_up"])
+                    _, cond = m.rrdb_cond(gpu_batch["lr"], gpu_batch["lr_up"])
+                    eps_pred = m.denoise_fn(m.q_sample(x, t.cuda(), noise[0]), t.cuda(), cond).float()
+            del m
+            return out, eps_pred
+
+        (loss32, got32, fwd32, both32), _ = card("float32", {})
+        worst, bad = grad_errors(got32, want)
+        bad += sorted(set(want) ^ set(got32))
+        rel32 = abs(loss32 - loss_cpu) / abs(loss_cpu)
+        expect = train_step_launches("default", "float32")
+        ok = not bad and rel32 <= 1e-4 and fwd32 == expect and both32 == fwd32
+        print(f"train f32 card vs CPU, B=2 {TRAIN_HR}^2, t={list(TRAIN_T)}: loss {loss32:.6f} vs {loss_cpu:.6f} (rel "
+              f"{rel32:.2e}, tol 1e-4), {len(want)} gradients max err {worst:.3e} of max |CPU grad| (tol {GRAD_TOL}), "
+              f"forward launches {fwd32} (expected {expect}), after backward {both32} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(f"train f32 card vs CPU: loss rel {rel32}, bad grads {bad[:5]}, "
+                            f"launches {fwd32} / {both32}")
+        (loss16, got16, fwd16, both16), eps16 = card("bfloat16", {})
+        (loss_ref, ref16, off_fwd, _), eps_ref = card("bfloat16", CUDNN_ENV)
+        rel16 = abs(loss16 - loss_ref) / abs(loss_ref)
+        e_max = (eps16 - eps_ref).abs().max().item() / eps_ref.abs().max().item()
+        e_mean = (eps16 - eps_ref).abs().mean().item() / eps_ref.abs().mean().item()
+        g_vs_off, g_vs_32 = _global_dist(got16, ref16), _global_dist(got16, got32)
+        off_vs_32 = _global_dist(ref16, got32)
+        expect16 = train_step_launches("default")
+        ok16 = (rel16 <= FWD_MEAN_REL and e_max <= FWD_MAX_REL and e_mean <= FWD_MEAN_REL
+                and g_vs_off[0] <= FWD_MAX_REL and g_vs_32[0] <= FWD_F32_RATIO_MAX * off_vs_32[0]
+                and g_vs_32[1] <= FWD_F32_RATIO_MEAN * off_vs_32[1] and sorted(got16) == sorted(ref16)
+                and fwd16 == expect16 and both16 == fwd16 and not off_fwd)
+        print(f"train bf16 card, regions vs every region off: loss rel {rel16:.2e}, eps max rel {e_max:.3e} mean rel "
+              f"{e_mean:.3e}; gradients vs regions off max {g_vs_off[0]:.3e} mean {g_vs_off[1]:.3e}; vs float32 "
+              f"max {g_vs_32[0]:.3e} mean {g_vs_32[1]:.3e} where regions off lie at {off_vs_32[0]:.3e} / "
+              f"{off_vs_32[1]:.3e}; forward launches {fwd16}, after backward {both16}, regions off {off_fwd} "
+              f"{'ok' if ok16 else 'FAIL'}", flush=True)
+        if not ok16:
+            failures.append(f"train bf16 vs regions off: loss {rel16}, eps {e_max}/{e_mean}, grads {g_vs_off} "
+                            f"{g_vs_32} {off_vs_32}, launches {fwd16} / {both16} / {off_fwd}")
+        res["card_vs_cpu"] = {"loss_rel_f32": rel32, "max_grad_rel_err_f32": worst, "bad": bad[:10],
+                              "launches_f32": fwd32, "loss_rel_bf16": rel16, "eps_rel_bf16": [e_max, e_mean],
+                              "grads_bf16_vs_off": g_vs_off, "grads_bf16_vs_f32": g_vs_32,
+                              "grads_off_vs_f32": off_vs_32, "launches_bf16": fwd16}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        torch.cuda.empty_cache()
+
+
+def _train_fit(tmp, res, failures, rows):
+    """Part 2 and the fit's share of part 4: ``Trainer.fit`` over the PNGs
+    for TRAIN_UPDATES updates with validation every TRAIN_VAL_EVERY (and the
+    sanity validation at 0), keep TRAIN_KEEP; then a resume to
+    TRAIN_RESUME_TO. Returns the trainer state for the next parts."""
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.ckpt.ckpt_io import get_all_ckpts, load_checkpoint
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.data import DataLoader, DIV2KDataset
+    from dgm_img_super_resolution_tpu_torch.train.tasks.srdiff import SRDiffTask
+    from dgm_img_super_resolution_tpu_torch.train.trainer import lr_at
+
+    work = tmp / "work"
+    hp = Hparams(**dict(TRAIN_HP, work_dir=str(work), val_check_interval=TRAIN_VAL_EVERY, num_ckpt_keep=TRAIN_KEEP,
+                        valid_steps=TRAIN_VAL_BATCHES, decay_steps=TRAIN_UPDATES // 2, tb_log_interval=4))
+    ds = DIV2KDataset(str(tmp / "png"), hp["sr_scale"], TRAIN_HR, TRAIN_HR, data_augmentation=True, seed=1)
+    val_ds = DIV2KDataset(str(tmp / "png"), hp["sr_scale"], TRAIN_HR, TRAIN_HR)
+    it = iter(DataLoader(val_ds, TRAIN_VAL_SIZE, shuffle=False, num_workers=8))
+    val = [next(it) for _ in range(TRAIN_VAL_BATCHES)]
+    it.close()
+    counters = _counters()
+
+    def run(max_updates):
+        task = SRDiffTask(hp)
+        trainer = task.make_trainer()
+        batches = iter(DataLoader(ds, TRAIN_BATCH, seed=hp["seed"], num_workers=hp["num_workers"], endless=True))
+        torch.cuda.synchronize()
+        _reset_counts(counters)
+        t0 = time.perf_counter()
+        try:
+            state = trainer.fit(batches, 0, max_updates=max_updates, val_fn=task.make_val_fn(val))
+            torch.cuda.synchronize()
+        finally:
+            batches.close()
+        return trainer, state, time.perf_counter() - t0, {k: v for k, v in _read_counts(counters).items() if v}
+
+    tr, s12, dt12, l12 = run(TRAIN_UPDATES)
+    per = train_step_launches("default")
+    want12 = _times(per, TRAIN_UPDATES + 3 * TRAIN_VAL_BATCHES)  # sanity, and validation at 6 and 12
+    kept12 = [Path(p).name for p in get_all_ckpts(str(work))]
+    saved, _ = load_checkpoint(str(work))
+    restored = SRDiffTask(hp).make_trainer()
+    rs = restored.init_state()
+    restored.restore(rs, saved)
+    same = (rs.step == s12.step == TRAIN_UPDATES and rs.optimizer.updates == TRAIN_UPDATES
+            and all(torch.equal(v, s12.model.state_dict()[k]) for k, v in rs.model.state_dict().items())
+            and all(torch.equal(a["exp_avg"], b["exp_avg"]) and torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
+                    for a, b in zip(rs.optimizer.adam.state.values(), s12.optimizer.adam.state.values())))
+    del restored, rs
+    tr2, s16, dt16, l16 = run(TRAIN_RESUME_TO)
+    kept = [Path(p).name for p in get_all_ckpts(str(work))]
+    steps = {int(float(st["step"])) for st in s16.optimizer.adam.state.values()}
+    lr = s16.optimizer.adam.param_groups[0]["lr"]
+    want16 = _times(per, TRAIN_RESUME_TO - TRAIN_UPDATES)
+    best = [Path(p).name for p in get_all_ckpts(str(work / "best"))]
+    ok = (l12 == want12 and l16 == want16 and same and s16.step == TRAIN_RESUME_TO
+          and s16.optimizer.updates == TRAIN_RESUME_TO and steps == {TRAIN_RESUME_TO}
+          and lr == lr_at(hp, TRAIN_RESUME_TO - 1)
+          and kept == [f"model_ckpt_steps_{TRAIN_RESUME_TO}.ckpt", f"model_ckpt_steps_{TRAIN_UPDATES}.ckpt"]
+          and kept12 == [f"model_ckpt_steps_{TRAIN_UPDATES}.ckpt", f"model_ckpt_steps_{TRAIN_VAL_EVERY}.ckpt"]
+          and len(best) == 1)
+    wait = tr.loader_wait_s / dt12
+    print(f"train fit B={TRAIN_BATCH} {TRAIN_HR}^2 bf16 on {TRAIN_IMAGES} PNGs: {TRAIN_UPDATES} updates (validation "
+          f"at 0, {TRAIN_VAL_EVERY}, {TRAIN_UPDATES}) {dt12:.2f} s, waiting on the loader {100 * wait:.1f}%, "
+          f"launches {l12} (expected {want12}); checkpoints {kept12}, best {best}; restored = saved {same}; resume to "
+          f"{TRAIN_RESUME_TO} {dt16:.2f} s, launches {l16} (expected {want16}), step {s16.step}, Adam count "
+          f"{sorted(steps)}, lr {lr:.3e}, checkpoints {kept}; saves {['%.3f' % v for v in tr.save_s + tr2.save_s]} s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"train fit: launches {l12} / {l16}, restored {same}, step {s16.step}, updates "
+                        f"{s16.optimizer.updates}, Adam {steps}, lr {lr}, checkpoints {kept12} / {kept}, best {best}")
+    res["fit"] = {"s": dt12, "loader_wait_share": wait, "launches": l12, "resume_s": dt16, "resume_launches": l16,
+                  "checkpoints": kept, "save_s": tr.save_s + tr2.save_s, "restored_equal": same}
+    _note_launches(rows, "train_fit_12_updates_3_validations", l12)
+    return ds
+
+
+def _train_steps(state, trainer, task, ds, res, failures, rows):
+    """Parts 3-5 on a fresh trainer state: the launches of one step under
+    the default and under A (forward alone, then with backward), the
+    descent on one fixed batch, and the timed steps fed by the loader."""
+    import numpy as np
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.data import DataLoader
+    from dgm_img_super_resolution_tpu_torch.train.trainer import batch_to_device
+
+    counters = _counters()
+    batches = iter(DataLoader(ds, TRAIN_BATCH, seed=21, num_workers=8, endless=True))
+    try:
+        fixed = next(batches)
+        dev = batch_to_device(fixed, torch.device("cuda"))
+        for cfg in ("default", "A"):
+            with switches(**CONFIGS[cfg]):
+                t = torch.tensor(TRAIN_T * (TRAIN_BATCH // 2)).cuda()
+                _, _, fwd, both = _loss_and_grads(task, state.model, dev, t, None, counters)
+                state.model.zero_grad(set_to_none=True)
+                _reset_counts(counters)
+                for _ in range(2):
+                    trainer.train_step(state, fixed)
+                two = {k: v for k, v in _read_counts(counters).items() if v}
+            want = train_step_launches(cfg)
+            ok = fwd == want and both == fwd and two == _times(want, 2)
+            print(f"train step launches, config {cfg}: forward {fwd}, with backward {both}, two train_steps {two} "
+                  f"(expected {want} a step) {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"train step launches {cfg}: {fwd} / {both} / {two}, expected {want}")
+            res[f"step_launches_{cfg}"] = fwd
+            _note_launches(rows, f"train_step_{cfg}", fwd)
+
+        def fixed_loss():
+            with torch.no_grad():
+                return float(task.loss_fn(state.model, dev, torch.Generator(device="cuda").manual_seed(0))[0])
+
+        before = fixed_loss()
+        for _ in range(TRAIN_DESCENT_STEPS):
+            trainer.train_step(state, fixed, torch.Generator(device="cuda").manual_seed(0))
+        after = fixed_loss()
+        ok = after < before
+        print(f"train descent: {TRAIN_DESCENT_STEPS} updates on one batch (same t and noise), loss {before:.5f} -> "
+              f"{after:.5f} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"train descent: loss {before} -> {after}")
+        res["descent"] = [before, after]
+
+        alone = iter(DataLoader(ds, TRAIN_BATCH, seed=44, num_workers=8, endless=True))
+        next(alone)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            next(alone)
+        res["loader_batch_s"] = (time.perf_counter() - t0) / 3  # the loader alone, nothing else running
+        alone.close()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, waits = [], []
+        for _ in range(TRAIN_TIMED_STEPS + 2):
+            t0 = time.perf_counter()
+            b = next(batches)
+            t1 = time.perf_counter()
+            trainer.train_step(state, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            waits.append(t1 - t0)
+        step_s = float(np.median(times[2:]))
+        res["timing"] = {"step_ms": 1e3 * step_s, "crops_per_s": TRAIN_BATCH / step_s,
+                         "loader_wait_share": float(sum(waits[2:]) / sum(times[2:])),
+                         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                         "step_ms_all": [1e3 * v for v in times]}
+    finally:
+        batches.close()
+
+
+def _train_device_step_ms(state, trainer, ds):
+    """The median device-side step with the batch already on the card (the
+    loader out of the way)."""
+    import numpy as np
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.data import DataLoader
+
+    it = iter(DataLoader(ds, TRAIN_BATCH, seed=33, num_workers=8))
+    b = next(it)
+    it.close()
+    ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(state, b)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(ms[2:]))
+
+
+def phase_train(rows, card):
+    """SRDiff training at full width through the real entry points
+    (``SRDiffTask``, ``Trainer.fit``, ``DIV2KDataset``, ``DataLoader``), batch
+    64 of 160^2 HR crops in bf16: card vs CPU, fit / resume / keep-K, the
+    descent, the launches of rows 1-3 under grad, and the times."""
+    import tempfile
+
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.train.tasks.srdiff import SRDiffTask
+
+    res, failures = {}, []
+    t_phase = time.perf_counter()
+    _train_card_vs_cpu(res, failures)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "png").mkdir()
+        t0 = time.perf_counter()
+        write_train_pngs(tmp / "png", seed=0)
+        res["write_pngs_s"] = time.perf_counter() - t0
+        ds = _train_fit(tmp, res, failures, rows)
+        task = SRDiffTask(Hparams(**dict(TRAIN_HP, work_dir=str(tmp / "steps"))))
+        trainer = task.make_trainer()
+        state = trainer.init_state()
+        _train_steps(state, trainer, task, ds, res, failures, rows)
+        res["timing"]["device_step_ms"] = _train_device_step_ms(state, trainer, ds)
+        tm = res["timing"]
+        save = sorted(res["fit"]["save_s"])[len(res["fit"]["save_s"]) // 2]
+        print(f"{card}: train step B={TRAIN_BATCH} {TRAIN_HR}^2 bf16, median of {TRAIN_TIMED_STEPS} after 2 warm-up: "
+              f"{tm['step_ms']:.1f} ms fed by the loader ({tm['crops_per_s']:.1f} HR crops/s, waiting on the loader "
+              f"{100 * tm['loader_wait_share']:.1f}%), {tm['device_step_ms']:.1f} ms with the batch ready "
+              f"({TRAIN_BATCH / tm['device_step_ms'] * 1e3:.1f} crops/s); peak memory "
+              f"{tm['peak_mem_gib']:.2f} GiB (max_memory_allocated); checkpoint save median {save:.3f} s; "
+              f"fit's loader wait {100 * res['fit']['loader_wait_share']:.1f}%; the loader alone "
+              f"{res['loader_batch_s']:.3f} s a batch ({TRAIN_BATCH / res['loader_batch_s']:.1f} crops/s)", flush=True)
+        res["checkpoint_save_s"] = save
+    del state
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"train phase {res['phase_s']:.1f} s", flush=True)
+    return res, failures
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None, help="directory for the full results")
@@ -2223,7 +2628,8 @@ def main() -> int:
     ckpt_cli, f9 = phase_checkpoint_cli(rows)
     sd_local, f10 = phase_sd_local_checkpoint(rows)
     sd_e2e, f8 = phase_sd_card_vs_cpu()
-    failures += f3 + f3c + f3b + f4 + f4b + f5 + f6 + f7 + f7b + f9 + f10 + f8
+    train, f11 = phase_train(rows, card)
+    failures += f3 + f3c + f3b + f4 + f4b + f5 + f6 + f7 + f7b + f9 + f10 + f8 + f11
     missing = [row["name"] for row in rows if row["launches"] is None]
     if missing:
         failures.append(f"no launch count for {missing}")
@@ -2232,7 +2638,8 @@ def main() -> int:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "kernels": rows, "pipeline": pipe, "serving_paths": paths, "bf16_forward": fwd16,
              "card_vs_cpu": e2e, "backward": bwd, "sd": sd, "sd_options": sd_opts, "checkpoint_cli": ckpt_cli,
-             "sd_local_checkpoint": sd_local, "sd_card_vs_cpu": sd_e2e, "failures": failures}, indent=1))
+             "sd_local_checkpoint": sd_local, "sd_card_vs_cpu": sd_e2e, "train": train, "failures": failures},
+            indent=1))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1

@@ -1,11 +1,13 @@
-"""Command line of the port: ``dgmsr-torch infer | eval | test | interp``
-(counterpart of the JAX package's ``apps/cli.py``, with its arguments and
-printed lines).
+"""Command line of the port: ``dgmsr-torch infer | train | eval | test |
+interp`` (counterpart of the JAX package's ``apps/cli.py``, with its
+arguments and printed lines).
 
 Every subcommand runs on the CUDA device unless ``--device`` names another
 (``--device cpu`` runs the plain PyTorch versions). ``--ckpt`` loads the
 upstream SRDiff checkpoint; without it the weights are a seeded random init.
-The JAX CLI's ``train`` and ``bench`` are not ported yet.
+``train`` trains SRDiff on a directory of DIV2K-style images into
+``work_dir`` (``--exp_name`` sets it to ``checkpoints/<name>``), resuming
+from its newest checkpoint. The JAX CLI's ``bench`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -83,6 +85,24 @@ def cmd_infer(args) -> int:
     out = unit_to_uint8(sr)
     _save(out, args.output)
     print(f"| wrote {args.output} ({out.shape[1]}x{out.shape[0]})")
+    return 0
+
+
+def cmd_train(args) -> int:
+    from dgm_img_super_resolution_tpu_torch.data import DataLoader, DIV2KDataset
+    from dgm_img_super_resolution_tpu_torch.train.tasks.srdiff import SRDiffTask
+
+    hp = _hparams(args)
+    size = hp.get("patch_size", 160)
+    ds = DIV2KDataset(args.data_dir, scale_factor=hp["sr_scale"], hr_height=size, hr_width=size,
+                      data_augmentation=hp["data_augmentation"])
+    loader = DataLoader(ds, hp["batch_size"], num_workers=hp["num_workers"], endless=True, seed=hp["seed"])
+    trainer = SRDiffTask(hp).make_trainer(device=args.device or None)
+    batches = iter(loader)
+    try:
+        trainer.fit(batches, hp["seed"], max_updates=args.max_updates or None)
+    finally:
+        batches.close()
     return 0
 
 
@@ -170,6 +190,12 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--patch", type=int, default=0, help="patch size for tiled large-image SR")
     p.add_argument("--progress", action="store_true", help="show sampler progress on stderr")
     p.set_defaults(fn=cmd_infer)
+
+    p = sub.add_parser("train", help="train SRDiff on DIV2K-style data")
+    _add_common(p)
+    p.add_argument("data_dir")
+    p.add_argument("--max_updates", type=int, default=0)
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("eval", help="PSNR/SSIM/lr_psnr on an HR image")
     _add_common(p)

@@ -131,7 +131,8 @@ def jax_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
         name, tr = found
         if leaf != "bias":
             arr = tr(arr)
-        out[f"{root}.{name}.{_LEAVES[leaf]}"] = torch.from_numpy(np.ascontiguousarray(arr))
+        # a copy: through ascontiguousarray a flipped axis of size 1 keeps its negative stride
+        out[f"{root}.{name}.{_LEAVES[leaf]}"] = torch.from_numpy(np.array(arr, order="C"))
     return out
 
 

@@ -24,8 +24,17 @@ step, at the low-t end.
 
 ``interpolate`` mixes two images' ``q_sample`` at one timestep t and runs
 the ancestral chain from t-1 down to 0 on the first image's condition;
-its noise is ``(eps_1, eps_2, {t: eps_t})`` or drawn from a generator. The
-training losses are not ported yet.
+its noise is ``(eps_1, eps_2, {t: eps_t})`` or drawn from a generator.
+
+Training (``training_losses``, JAX ``gaussian.py:252-300``): one timestep per
+row, drawn from the generator or passed in as a (B,) tensor, so rows of one
+batch sit at different t. The schedule is then read per row from a float32
+copy of each buffer on the batch's device (``_coef``), with no round trip to
+the host; a sampler step, whose t is one int for the batch, reads its
+scalars from the host arrays as before. The noise is drawn, or passed as a
+tensor (the q noise; the posterior step's is drawn), a pair ``(eps,
+eps_step)`` or a hook ``noise(None)`` -> eps, ``noise(t)`` -> eps_step.
+Under ``fix_rrdb`` the encoder runs without grad (JAX's ``stop_gradient``).
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import torch
 import torch.nn as nn
 
 from dgm_img_super_resolution_tpu_torch.diffusion.schedule import Schedule
+from dgm_img_super_resolution_tpu_torch.metrics.psnr_ssim import ssim as ssim_loss
 
 NoiseHook = Callable[[int | None], torch.Tensor]
 
@@ -52,25 +62,68 @@ def as_noise_hook(noise, shape, device, generator: torch.Generator | None) -> No
     return lambda t: x_t if t is None else steps[int(t)]
 
 
+def _train_noise(noise, x: torch.Tensor, generator: torch.Generator | None) -> NoiseHook:
+    """Normalise the ``noise`` argument of ``training_losses`` into a hook:
+    ``hook(None)`` the q noise, ``hook(t)`` the posterior step's. Drawn
+    noise takes x's memory format (channels_last on the card)."""
+    def draw(_t=None):
+        return torch.empty_like(x, dtype=torch.float32).normal_(generator=generator)
+
+    if noise is None:
+        return draw
+    if callable(noise):
+        return noise
+    if isinstance(noise, torch.Tensor):
+        return lambda t: noise if t is None else draw()
+    eps, eps_step = noise
+    return lambda t: eps if t is None else eps_step
+
+
 class GaussianDiffusion(nn.Module):
     def __init__(self, denoise_fn: nn.Module, rrdb_net: nn.Module | None, schedule: Schedule, *,
-                 res: bool = True, res_rescale: float = 2.0, clip_input: bool = True):
+                 loss_type: str = "l1", res: bool = True, res_rescale: float = 2.0, clip_input: bool = True,
+                 use_rrdb: bool = True, fix_rrdb: bool = True, aux_l1_loss: bool = True,
+                 aux_ssim_loss: bool = False, aux_percep_loss: bool = False,
+                 percep_loss_fn: Callable | None = None):
         super().__init__()
         self.denoise_fn = denoise_fn
         self.rrdb = rrdb_net
         self.schedule = schedule
         self.num_timesteps = schedule.num_timesteps
+        self.loss_type = loss_type
         self.res = res
         self.res_rescale = res_rescale
         self.clip_input = clip_input
+        self.use_rrdb = use_rrdb and rrdb_net is not None
+        self.fix_rrdb = fix_rrdb
+        self.aux_l1_loss = aux_l1_loss
+        self.aux_ssim_loss = aux_ssim_loss
+        self.aux_percep_loss = aux_percep_loss
+        self.percep_loss_fn = percep_loss_fn
+        self._buffers_on: dict[torch.device, dict[str, torch.Tensor]] = {}
+
+    def _coef(self, name: str, t, x: torch.Tensor):
+        """Schedule buffer ``name`` at ``t``: a float for an int ``t`` (a
+        sampler step), else the (B, 1, 1, 1) rows gathered from the buffer's
+        float32 copy on x's device."""
+        if not isinstance(t, torch.Tensor):
+            return float(getattr(self.schedule, name)[t])
+        bufs = self._buffers_on.get(x.device)
+        if bufs is None:
+            bufs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(x.device)
+                    for k, v in vars(self.schedule).items()}
+            self._buffers_on[x.device] = bufs
+        return bufs[name][t.to(x.device)].view(-1, *([1] * (x.ndim - 1)))
 
     # ------------------------------------------------------------ condition
     def rrdb_cond(self, img_lr, img_lr_up):
-        """Run the condition encoder once. Returns (rrdb_out, cond)."""
-        if self.rrdb is None:
+        """Run the condition encoder once. Returns (rrdb_out, cond); under
+        ``fix_rrdb`` without grad."""
+        if not self.use_rrdb:
             return img_lr_up, img_lr
-        out, feas = self.rrdb(img_lr, True)
-        return out, torch.cat(feas[2::3], dim=1)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not self.fix_rrdb):
+            out, feas = self.rrdb(img_lr, True)
+            return out, torch.cat(feas[2::3], dim=1)
 
     def sample_prepare(self, img_lr, img_lr_up, noise=None, generator=None):
         """Everything before the sampler loop: the RRDB condition (once), its
@@ -91,25 +144,93 @@ class GaussianDiffusion(nn.Module):
         return self.denoise_fn(x, tb, cond, img_lr_up, cond_projected=True, up_folded=True).float()
 
     # ------------------------------------------------------------- q process
+    def q_mean_variance(self, x_start, t):
+        """Mean, variance and log variance of q(x_t | x_0)."""
+        acp = self._coef("alphas_cumprod", t, x_start)
+        return (self._coef("sqrt_alphas_cumprod", t, x_start) * x_start, 1.0 - acp,
+                self._coef("log_one_minus_alphas_cumprod", t, x_start))
+
     def q_sample(self, x_start, t, noise):
-        """x_t ~ q(x_t | x_0) at per-batch timesteps ``t``; where t is -1
-        the result is x_start itself, as in the JAX package."""
-        s = self.schedule
-        idx = t.cpu().numpy()
-        tc = np.maximum(idx, 0)
-        a = torch.from_numpy(s.sqrt_alphas_cumprod[tc]).to(x_start.device)[:, None, None, None]
-        b = torch.from_numpy(s.sqrt_one_minus_alphas_cumprod[tc]).to(x_start.device)[:, None, None, None]
-        keep = torch.from_numpy(idx < 0).to(x_start.device)[:, None, None, None]
-        return torch.where(keep, x_start, a * x_start + b * noise)
+        """x_t ~ q(x_t | x_0) at per-row timesteps ``t`` (B,); where t is
+        -1 the result is x_start itself, as in the JAX package."""
+        t = t.to(x_start.device)
+        tc = t.clamp(min=0)
+        a = self._coef("sqrt_alphas_cumprod", tc, x_start)
+        b = self._coef("sqrt_one_minus_alphas_cumprod", tc, x_start)
+        return torch.where((t < 0).view(-1, 1, 1, 1), x_start, a * x_start + b * noise)
 
-    def predict_start_from_noise(self, x_t, t: int, noise):
-        s = self.schedule
-        return float(s.sqrt_recip_alphas_cumprod[t]) * x_t - float(s.sqrt_recipm1_alphas_cumprod[t]) * noise
+    def predict_start_from_noise(self, x_t, t, noise):
+        """x0 from eps at ``t``: an int (a sampler step) or per-row (B,)."""
+        return (self._coef("sqrt_recip_alphas_cumprod", t, x_t) * x_t
+                - self._coef("sqrt_recipm1_alphas_cumprod", t, x_t) * noise)
 
-    def q_posterior(self, x_start, x_t, t: int):
-        s = self.schedule
-        mean = float(s.posterior_mean_coef1[t]) * x_start + float(s.posterior_mean_coef2[t]) * x_t
-        return mean, float(s.posterior_variance[t]), float(s.posterior_log_variance_clipped[t])
+    def q_posterior(self, x_start, x_t, t):
+        mean = (self._coef("posterior_mean_coef1", t, x_t) * x_start
+                + self._coef("posterior_mean_coef2", t, x_t) * x_t)
+        return (mean, self._coef("posterior_variance", t, x_t),
+                self._coef("posterior_log_variance_clipped", t, x_t))
+
+    def p_mean_variance(self, x, t, noise_pred, clip_denoised: bool = True):
+        x_recon = self.predict_start_from_noise(x, t, noise_pred)
+        if clip_denoised:
+            x_recon = x_recon.clamp(-1.0, 1.0)
+        mean, variance, log_variance = self.q_posterior(x_recon, x, t)
+        return mean, variance, log_variance, x_recon
+
+    def p_sample_from_pred(self, x, t, noise_pred, noise, clip_denoised: bool = True):
+        """One ancestral step from a predicted eps at per-row timesteps
+        ``t`` (B,), with step noise ``noise``: (x_{t-1}, x0)."""
+        mean, _, log_variance, x0 = self.p_mean_variance(x, t, noise_pred, clip_denoised)
+        nonzero = (t.to(x.device) > 0).to(x.dtype).view(-1, *([1] * (x.ndim - 1)))
+        return mean + nonzero * torch.exp(0.5 * log_variance) * noise, x0
+
+    # -------------------------------------------------------------- training
+    def p_losses(self, x_start, t, cond, img_lr_up, noise: NoiseHook):
+        """The diffusion loss at per-row ``t``: (loss, x_tp1, eps_pred,
+        x_t_pred, x_t_gt, x0_pred); the posterior step that gives x_t_pred
+        is for viewing only and runs without grad."""
+        eps = noise(None)
+        x_tp1_gt = self.q_sample(x_start, t, eps)
+        x_t_gt = self.q_sample(x_start, t - 1, eps)
+        noise_pred = self.denoise_fn(x_tp1_gt, t, cond, img_lr_up).float()
+        with torch.no_grad():
+            x_t_pred, x0_pred = self.p_sample_from_pred(x_tp1_gt, t, noise_pred.detach(), noise(t))
+        if self.loss_type == "l1":
+            loss = (eps - noise_pred).abs().mean()
+        elif self.loss_type == "l2":
+            loss = ((eps - noise_pred) ** 2).mean()
+        elif self.loss_type == "ssim":
+            loss = (eps - noise_pred).abs().mean() + (1.0 - ssim_loss(eps, noise_pred))
+        else:
+            raise NotImplementedError(self.loss_type)
+        return loss, x_tp1_gt, noise_pred, x_t_pred, x_t_gt, x0_pred
+
+    def training_losses(self, img_hr, img_lr, img_lr_up, t=None, noise=None,
+                        generator: torch.Generator | None = None):
+        """The training forward (reference ``forward``, ``model.py:992-1021``)
+        over NCHW batches in [-1, 1]. ``t``: None (drawn, one per row), an
+        int for every row, or a (B,) tensor. Returns ``(losses, (x_tp1,
+        x_t_gt, x_t) images, t)``."""
+        b, dev = img_hr.shape[0], img_hr.device
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (b,), generator=generator,
+                              device=generator.device if generator is not None else dev)
+        elif not isinstance(t, torch.Tensor):
+            t = torch.full((b,), int(t), dtype=torch.long)
+        t = t.to(dev)
+        rrdb_out, cond = self.rrdb_cond(img_lr, img_lr_up)
+        x = self.img2res(img_hr, img_lr_up)
+        loss, x_tp1, _, x_t, x_t_gt, _ = self.p_losses(x, t, cond, img_lr_up, _train_noise(noise, x, generator))
+        losses = {"q": loss}
+        if self.use_rrdb and not self.fix_rrdb:
+            if self.aux_l1_loss:
+                losses["aux_l1"] = (rrdb_out - img_hr).abs().mean()
+            if self.aux_ssim_loss:
+                losses["aux_ssim"] = 1.0 - ssim_loss(rrdb_out, img_hr)
+            if self.aux_percep_loss and self.percep_loss_fn is not None:
+                losses["aux_percep"] = self.percep_loss_fn(img_hr, rrdb_out)
+        imgs = tuple(self.res2img(v.detach(), img_lr_up) for v in (x_tp1, x_t_gt, x_t))
+        return losses, imgs, t
 
     # -------------------------------------------------------------- sampling
     def _encode(self, x, t: int, cond, img_lr_up):

@@ -112,7 +112,7 @@ class SRDiffPipeline:
 
             params, _ = import_srdiff_checkpoint(ckpt_path)
         if params is None:
-            init_srdiff_params(model, seed=int(self.hp["seed"]))
+            init_srdiff_params(model, seed=int(self.hp["seed"]), weight_init=bool(self.hp.get("weight_init", False)))
         else:
             model.load_state_dict(params, strict=True)
         self.model = model.to(self.device).eval()

@@ -1,5 +1,6 @@
 """Model factory: Hparams -> SRDiff model stack (counterpart of the JAX
-package's ``models/factory.py``), plus a seeded random init."""
+package's ``models/factory.py``), plus a seeded random init, with the
+UNet's He-normal re-init when ``weight_init`` is set."""
 
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ def build_unet(hp: Hparams) -> Unet:
         up_input=hp["up_input"],
         groups=hp["gn_groups"],
         dtype=compute_dtype(hp),
+        cond_in=None if hp["use_rrdb"] else 3,  # without the RRDB the condition is the LR image
     )
 
 
@@ -57,29 +59,42 @@ def build_srdiff(hp: Hparams) -> GaussianDiffusion:
         build_unet(hp),
         build_rrdb(hp) if hp["use_rrdb"] else None,
         schedule,
+        loss_type=hp["loss_type"],
         res=hp["res"],
         res_rescale=hp["res_rescale"],
         clip_input=hp["clip_input"],
+        use_rrdb=hp["use_rrdb"],
+        fix_rrdb=hp["fix_rrdb"],
+        aux_l1_loss=hp["aux_l1_loss"],
+        aux_ssim_loss=hp["aux_ssim_loss"],
+        aux_percep_loss=hp["aux_percep_loss"],
     )
 
 
+def fan_in(mod: nn.Module) -> int:
+    """Inputs per output of a conv, transposed conv or linear layer
+    (ConvTranspose2d keeps (C_in, C_out, kh, kw): C_in * kh * kw)."""
+    w = mod.weight
+    return w.shape[0] * w[0, 0].numel() if isinstance(mod, nn.ConvTranspose2d) else w[0].numel()
+
+
 @torch.no_grad()
-def init_srdiff_params(model: nn.Module, seed: int = 0) -> nn.Module:
+def init_srdiff_params(model: nn.Module, seed: int = 0, weight_init: bool = False) -> nn.Module:
     """Seeded random init in place: LeCun-normal weights (std 1/sqrt(fan_in),
     as the JAX package's convs and dense layers) and uniform biases in
-    +-1/sqrt(fan_in). Deterministic for a seed on any device."""
+    +-1/sqrt(fan_in); with ``weight_init`` the UNet is then re-drawn
+    He-normal with zero biases (JAX ``factory.py:103-108``). Deterministic
+    for a seed on any device."""
     g = torch.Generator().manual_seed(seed)
     for mod in model.modules():
         if not isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             continue
-        w = mod.weight
-        # ConvTranspose2d keeps (C_in, C_out, kh, kw): its fan-in is C_in * kh * kw
-        if isinstance(mod, nn.ConvTranspose2d):
-            fan_in = w.shape[0] * w[0, 0].numel()
-        else:
-            fan_in = w[0].numel()
-        bound = 1.0 / math.sqrt(fan_in)
-        w.copy_(torch.randn(w.shape, generator=g) * bound)
+        bound = 1.0 / math.sqrt(fan_in(mod))
+        mod.weight.copy_(torch.randn(mod.weight.shape, generator=g) * bound)
         if mod.bias is not None:
             mod.bias.copy_((torch.rand(mod.bias.shape, generator=g) * 2 - 1) * bound)
+    if weight_init:
+        from dgm_img_super_resolution_tpu_torch.models.param_transforms import kaiming_init
+
+        kaiming_init(model.denoise_fn, seed=seed + 1)
     return model

@@ -72,7 +72,8 @@ def _wb(c: nn.Module):
 class Unet(nn.Module):
     def __init__(self, dim: int = 64, out_dim: int = 3, dim_mults=(1, 2, 3, 4), cond_dim: int = 32,
                  rrdb_num_block: int = 8, sr_scale: int = 4, use_attn: bool = False, res: bool = True,
-                 up_input: bool = False, groups: int = 0, dtype: torch.dtype = torch.float32):
+                 up_input: bool = False, groups: int = 0, dtype: torch.dtype = torch.float32,
+                 cond_in: int | None = None):
         super().__init__()
         if len(dim_mults) < 2:
             raise NotImplementedError("the port's UNet needs at least two stages")
@@ -81,7 +82,8 @@ class Unet(nn.Module):
         dims = [3] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         n_sel = len(range(2, rrdb_num_block + 1, 3))  # feas[2::3] of nb + 1 features
-        self.cond_proj = nn.ConvTranspose2d(cond_dim * n_sel, dim, sr_scale * 2, sr_scale, sr_scale // 2)
+        # cond_in: the condition's channels when it is not the RRDB's features (the LR image without RRDB)
+        self.cond_proj = nn.ConvTranspose2d(cond_in or cond_dim * n_sel, dim, sr_scale * 2, sr_scale, sr_scale // 2)
         self.mlp = nn.Sequential(nn.Linear(dim, dim * 4), Mish(), nn.Linear(dim * 4, dim))
         self.downs = nn.ModuleList()
         for i, (di, do) in enumerate(in_out):

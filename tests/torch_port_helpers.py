@@ -93,3 +93,11 @@ def random_published_state_dict(shapes, seed):
             v = g.standard_normal(shp) / np.sqrt(int(np.prod(shp[1:])))
         sd[key] = v.astype(np.float32)
     return sd
+
+
+def jit_quick(fn, *args):
+    """``jax.jit(fn)`` compiled for ``args`` with XLA's backend optimisations
+    off: the same float32 operations, compiled in about half the time (the
+    tiny training graphs of the train tests run once or a few times)."""
+    return jax.jit(fn).lower(*args).compile({"xla_backend_optimization_level": 0,
+                                             "xla_llvm_disable_expensive_passes": True})

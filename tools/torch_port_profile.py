@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time of one serve goes on the GPU (the PyTorch port).
+"""Where the time of one serve, or of one training step, goes on the GPU
+(the PyTorch port).
 
     python3 tools/torch_port_profile.py [--model srdiff|sd] [--config default|A|B|C] [--batch N] [--steps 20]
                                         [--enc-interval K] [--lr PX] [--top 20] [--out DIR]
+    python3 tools/torch_port_profile.py --train [--config ...] [--batch 64] [--hr 160] [--top 20] [--out DIR]
 
 ``--model srdiff`` (default) serves the default full-width SRDiff config
 (seeded random weights, bf16, DDIM ``--steps`` steps with eta 1, batch
@@ -15,6 +17,16 @@ either with encoder propagation. Each serves once to warm up,
 then once under ``torch.profiler``. Prints the device time by kernel class
 and the ``--top`` kernels, the device's busy and idle share of the wall time, and
 one JSON line with the same numbers. ``--out DIR`` also writes a Chrome trace.
+
+``--train`` profiles one SRDiff training step instead (``Trainer.train_step``
+of ``SRDiffTask``, full width, seeded random weights, bf16, batch
+``--batch`` (64) of ``--hr`` (160) HR crops already in host memory, after
+two warm-up steps) and splits its device time into: the forward's port
+kernels (rows 1-3: they launch in the forward only), the backward's plain
+recompute of the regions (every kernel launched under a
+``RecomputeBackward`` node, ``ops/kernels/_autograd.py``), cuDNN / cuBLAS
+and glue outside those, and the optimizer (clip, Adam, EMA: the
+``optimizer_update`` range of the trainer).
 Needs one CUDA device and nvcc; run from the root of the repository.
 """
 
@@ -55,6 +67,8 @@ def main() -> int:
     ap.add_argument("--top", type=int, default=20, help="kernels listed by device time")
     ap.add_argument("--lr", type=int, default=None, help="LR side in pixels (srdiff 128, sd 256)")
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--train", action="store_true", help="profile one SRDiff training step")
+    ap.add_argument("--hr", type=int, default=160, help="HR crop side of --train")
     args = ap.parse_args()
 
     import torch
@@ -65,7 +79,97 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 1
     with switches(**CONFIGS[args.config]):
-        return profile_serve(args)
+        return profile_train(args) if args.train else profile_serve(args)
+
+
+def _subtree_kernels(evt, into: dict[str, float]) -> None:
+    """Device ms by kernel class of every kernel launched under ``evt``."""
+    for k in evt.kernels:
+        c = kernel_class(k.name)
+        into[c] = into.get(c, 0.0) + k.duration / 1e3
+    for child in evt.cpu_children:
+        _subtree_kernels(child, into)
+
+
+def _ranges(events, match) -> list:
+    """The outermost events whose name ``match`` accepts."""
+    out = []
+    for e in events:
+        if not match(e.name):
+            continue
+        p = e.cpu_parent
+        while p is not None and not match(p.name):
+            p = p.cpu_parent
+        if p is None:
+            out.append(e)
+    return out
+
+
+def profile_train(args) -> int:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import TRAIN_HP, _train_batch
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.train.tasks.srdiff import SRDiffTask
+
+    batch_n = args.batch or 64
+    hp = Hparams(**dict(TRAIN_HP, batch_size=batch_n, patch_size=args.hr))
+    trainer = SRDiffTask(hp).make_trainer()
+    state = trainer.init_state()
+    batch = _train_batch(batch_n, args.hr, 0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for _ in range(2):
+        trainer.train_step(state, batch, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the trainer's record_function ranges show on the device timeline too; they are not kernels
+    kernels = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA
+               and a.key not in ("loss_and_grad", "optimizer_update") and not getattr(a, "is_user_annotation", False)]
+    busy_ms = sum(a.device_time_total for a in kernels) / 1e3
+    total: dict[str, float] = {}
+    for a in kernels:
+        c = kernel_class(a.key)
+        total[c] = total.get(c, 0.0) + a.device_time_total / 1e3
+    events = prof.events()
+    recompute: dict[str, float] = {}
+    for e in _ranges(events, lambda n: "RecomputeBackward" in n):
+        _subtree_kernels(e, recompute)
+    optim: dict[str, float] = {}
+    for e in _ranges(events, lambda n: n == "optimizer_update"):
+        _subtree_kernels(e, optim)
+    port = "port kernels (convs and regions)"
+    lib, glue = "cuDNN / cuBLAS convs and matmuls", "elementwise, copies and other"
+    rest = lambda c: total.get(c, 0.0) - recompute.get(c, 0.0) - optim.get(c, 0.0)  # noqa: E731
+    by_class = {
+        "forward: port kernels (rows 1-3)": rest(port),
+        "backward: plain recompute of the regions": sum(recompute.values()),
+        "cuDNN / cuBLAS (forward and backward, outside the recompute)": rest(lib),
+        "glue (elementwise, copies; outside the recompute and the optimizer)": rest(glue),
+        "optimizer (clip, Adam, EMA)": sum(optim.values()),
+    }
+    card = torch.cuda.get_device_name(0)
+    print(f"{card}: SRDiff train step config {args.config}, batch {batch_n} of {args.hr}^2 bf16: wall {wall_ms:.1f} ms "
+          f"(profiled), device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), {len(kernels)} kernel names")
+    for c, ms in by_class.items():
+        print(f"  {c:70s} {ms:9.1f} ms  {100 * ms / max(busy_ms, 1e-9):5.1f}% of device time")
+    print(f"  the recompute by class: {recompute}; the optimizer by class: {optim}")
+    top = sorted(kernels, key=lambda a: -a.device_time_total)[:args.top]
+    for a in top:
+        print(f"  {a.device_time_total / 1e3:9.2f} ms  x{a.count:<5d} {a.key[:110]}")
+    if args.out:
+        args.out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(args.out / f"torch_port_profile_train_{args.config}.json"))
+    print(json.dumps({"card": card, "model": "srdiff_train", "config": args.config, "batch": batch_n, "hr": args.hr,
+                      "wall_ms": wall_ms, "device_busy_ms": busy_ms, "by_class_ms": by_class,
+                      "recompute_by_kernel_class_ms": recompute, "optimizer_by_kernel_class_ms": optim,
+                      "top": [[a.key[:80], a.device_time_total / 1e3, a.count] for a in top[:10]]}))
+    return 0
 
 
 def profile_serve(args) -> int:
