@@ -80,10 +80,17 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    (the row's ``ms`` and ``library_ms``), and replayed from a CUDA graph
    (``ms_graph``, ``library_ms_graph``: device time without the host's
    launch overhead); and once beside its plain version.
-7. Hold ``fused_group_norm`` against its plain version: bf16 at the SD UNet's
-   (2, 256, 256, 256) and the SD VAE decoder's (1, 128, 1024, 1024), float32
-   at edge shapes in both layouts; time it beside its plain version and
-   ``F.silu(F.group_norm(...))``. Nothing calls it on a serve path.
+7. Hold ``fused_group_norm`` against its plain version: float32 at edge
+   shapes in both layouts, with and without SiLU; bf16 + SiLU at the SD
+   UNet's (2, 256, 256, 256) and the SD VAE decoder's (1, 128, 1024, 1024)
+   in both layouts, timed beside its plain version and
+   ``F.silu(F.group_norm(...))`` in turns; then at every (shape, groups,
+   eps, SiLU or not) of the SD serves at LR 256 and 128 (``gn_sweep``:
+   forward hooks on one UNet forward and one decode of the published-width
+   modules on the meta device), NCHW bf16, timed in turns with
+   ``F.group_norm`` (and ``F.silu``). Every case checks the route counter
+   (``launches_resident``, ``launches_streamed``) against ``plan_for`` and
+   that two calls are bit-equal. Nothing calls it on a serve path.
 8. Serve the SD x4-upscaler at the published widths (seeded random weights,
    bf16, DDIM 20 steps eta 0, guidance 9, noise level 20): one 256x256
    uint8 image -> (1, 1024, 1024, 3), where the flash kernel runs 120 times
@@ -234,9 +241,12 @@ SERVE_LAUNCHES = {
 # 3x3's then run over (2H, 2W).
 CONV64_EDGES = [(b, h, w) for b in (1, 3) for h in (2, 3, 17) for w in (3, 63, 64, 65, 130)]
 # Counters of one launch inside a region wrapper, read as <key>: (wrapper,
-# attribute): the bf16 Downsample and head on the conv core.
+# attribute): the bf16 Downsample and head on the conv core; row 8's
+# launches by route.
 EXTRA_COUNTERS = {"ds_wgmma": ("block_chain3_stem_ds", "launches_ds_wgmma"),
-                  "head_wgmma": ("block_chain3_head", "launches_head_wgmma")}
+                  "head_wgmma": ("block_chain3_head", "launches_head_wgmma"),
+                  "fused_group_norm_resident": ("fused_group_norm", "launches_resident"),
+                  "fused_group_norm_streamed": ("fused_group_norm", "launches_streamed")}
 CORE_REGIONS = ("stem", "stem_ds", "chain", "chain_cond", "head")
 # The wide chain's shapes on C's path at batch 8, 512x512 HR (B, C, H, W)
 # and its launches there a batch: down stage 1 and up stage 1 at C = 128,
@@ -281,6 +291,83 @@ SD_LR, SD_ENC_INTERVAL, SD_NEGATIVE = 256, 2, "blurry, low quality, jpeg artifac
 # batch 2) and the VAE decoder's last up block at 1024x1024.
 GN_SHAPES = (((2, 256, 256, 256), 1e-5), ((1, 128, 1024, 1024), 1e-6))
 GN_F32_SHAPES = (((2, 64, 13, 7), 32), ((2, 256, 16, 16), 32), ((1, 64, 128, 128), 32), ((1, 48, 33, 31), 16))
+GN_SWEEP_LRS = (256, 128)  # the SD serves whose GroupNorm calls make the sweep
+GN_STEPS = 20  # DDIM steps of one SD serve
+
+
+def sd_group_norm_calls(lr: int, steps: int = GN_STEPS, unet_cfg: dict | None = None,
+                        vae_cfg: dict | None = None) -> dict:
+    """{(shape, groups, eps, act): calls} of the ``nn.GroupNorm`` modules in
+    one SD x4 serve of one LR ``lr``-square image under guidance: ``steps``
+    UNet calls on the CFG batch of 2 at latent ``lr``, then one VAE decode.
+    Counted by ``hooked_group_norm_calls`` on one UNet forward (times
+    ``steps``) and one decode of the modules built from the configs (the
+    published ones by default) on the meta device, where nothing is
+    allocated or computed; the attention there is the plain one, whose
+    shapes are flash's."""
+    from collections import Counter
+    from unittest import mock
+
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.ckpt.sd_inventory import X4_UNET_CONFIG, X4_VAE_CONFIG
+    from dgm_img_super_resolution_tpu_torch.models.sd import attention
+    from dgm_img_super_resolution_tpu_torch.models.sd.unet import UNet2DCondition
+    from dgm_img_super_resolution_tpu_torch.models.sd.vae import AutoencoderKL
+
+    ucfg, vcfg = unet_cfg or X4_UNET_CONFIG, vae_cfg or X4_VAE_CONFIG
+    with torch.device("meta"), mock.patch.object(attention, "flash_attention", attention.attention):
+        unet, vae = UNet2DCondition(ucfg), AutoencoderKL(vcfg)
+        x = torch.empty(2, ucfg["in_channels"], lr, lr)
+        t = torch.zeros(2, dtype=torch.long)
+        ctx = torch.empty(2, 77, ucfg["cross_attention_dim"])
+        per_call = hooked_group_norm_calls([unet], lambda: unet(x, t, ctx, t))
+        calls = Counter({key: steps * n for key, n in per_call.items()})
+        z = torch.empty(1, vcfg["latent_channels"], lr, lr)
+        calls.update(hooked_group_norm_calls([vae], lambda: vae.decode(z)))
+    return dict(calls)
+
+
+def hooked_group_norm_calls(modules, run) -> dict:
+    """{(shape, groups, eps, act): calls} of every ``nn.GroupNorm`` inside
+    ``modules`` while ``run()`` runs, counted by forward hooks (removed
+    after); ``act`` is "silu" where SiLU follows the norm (the ResBlocks'
+    and the output norms), None for the attentions' (``attention.py``
+    Transformer2D, ``vae.py`` VAEAttention), from the module holding it."""
+    from collections import Counter
+
+    import torch.nn as nn
+
+    from dgm_img_super_resolution_tpu_torch.models.sd.attention import Transformer2D
+    from dgm_img_super_resolution_tpu_torch.models.sd.vae import VAEAttention
+
+    acts = {}
+    for m in modules:
+        for parent in m.modules():
+            for child in parent.children():
+                if isinstance(child, nn.GroupNorm):
+                    acts[child] = None if isinstance(parent, (Transformer2D, VAEAttention)) else "silu"
+    calls = Counter()
+
+    def hook(mod, inputs, output):
+        calls[(tuple(inputs[0].shape), mod.num_groups, mod.eps, acts[mod])] += 1
+
+    handles = [gn.register_forward_hook(hook) for gn in acts]
+    try:
+        run()
+    finally:
+        for h in handles:
+            h.remove()
+    return dict(calls)
+
+
+def gn_sweep() -> list[tuple[tuple, int, float, str | None, dict]]:
+    """Every distinct (shape, groups, eps, act) of the SD serves at
+    ``GN_SWEEP_LRS``, with its calls per serve at each LR; largest first."""
+    per_lr = {lr: sd_group_norm_calls(lr) for lr in GN_SWEEP_LRS}
+    keys = sorted({key for calls in per_lr.values() for key in calls},
+                  key=lambda key: (-key[0][0] * key[0][1] * key[0][2] * key[0][3], str(key)))
+    return [(*key, {f"lr{lr}": per_lr[lr].get(key, 0) for lr in GN_SWEEP_LRS}) for key in keys]
 
 
 @contextlib.contextmanager
@@ -1682,10 +1769,53 @@ def _gn_inputs(shape, dtype, seed, channels_last=False):
     return x, scale, bias
 
 
+def _gn_bound(x) -> tuple[float, str]:
+    """x read once, out written once; about 12 float32 operations an
+    element (two sums, normalise, affine, SiLU)."""
+    n = x.numel()
+    return bound(12.0 * n, 2.0 * n * x.element_size(), PEAK_F32)
+
+
+def _gn_case(x, sc, bi, groups, eps, act, label, tol, failures) -> tuple[float, object]:
+    """One (shape, layout, dtype, act) of ``fused_group_norm``: the kernel
+    against its plain version, the output's layout, the route counter
+    against the plan, and two calls bit for bit; (max_abs_err, plan)."""
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.ops.kernels import group_norm as gn
+
+    fgn = gn.fused_group_norm
+    p = gn.plan_for(x, groups)
+    before = (fgn.launches, fgn.launches_resident, fgn.launches_streamed)
+    got = fgn(x, sc, bi, groups, eps, act)
+    again = fgn(x, sc, bi, groups, eps, act)
+    torch.cuda.synchronize()
+    resident = 2 if p.route == "resident" else 0
+    routed = (fgn.launches, fgn.launches_resident, fgn.launches_streamed) == (
+        before[0] + 2, before[1] + resident, before[2] + 2 - resident)
+    same = bool(torch.equal(got, again))
+    cl = gn._channels_last(x)
+    layout = got.is_contiguous(memory_format=torch.channels_last if cl else torch.contiguous_format)
+    err = _check(f"{label} {'NHWC' if cl else 'NCHW'} act={act} ({p.route}, cluster {p.cluster}, "
+                 f"{p.slice_units * p.unit_bytes} B a CTA, units of {p.unit_bytes} B; bit-equal {same})",
+                 got, gn.fused_group_norm_plain(x, sc, bi, groups, eps, act), tol, failures)
+    for ok, what in ((routed, "route counters"), (same, "two calls differ"), (layout, "output layout")):
+        if not ok:
+            failures.append(f"{label} {tuple(x.shape)} channels_last={cl}: {what}")
+    return err, p
+
+
 def phase_group_norm():
     """``fused_group_norm`` against its plain version; returns its table row
     (``launches`` filled by the SD serve, where nothing calls it) and
-    failures. Timed with SiLU, as the SD ResBlocks normalise."""
+    failures. float32 at edge shapes in both layouts, with and without SiLU;
+    bf16 + SiLU at ``GN_SHAPES`` in both layouts, timed beside its plain
+    version and ``F.silu(F.group_norm(...))`` in turns; then the SD sweep:
+    every (shape, groups, eps, act) of the SD serves at ``GN_SWEEP_LRS``
+    (``gn_sweep``), NCHW bf16, each checked as above and timed in turns with
+    ``F.group_norm`` (and ``F.silu`` where the model applies it). Every case
+    also checks the route counter against ``plan_for`` and that two calls
+    are bit-equal."""
     import torch
     import torch.nn.functional as F
 
@@ -1696,34 +1826,43 @@ def phase_group_norm():
         for cl in (False, True):
             for act in (None, "silu"):
                 x, sc, bi = _gn_inputs(shape, torch.float32, seed=shape[-1], channels_last=cl)
-                got = gn.fused_group_norm(x, sc, bi, groups, 1e-5, act)
-                fmt = torch.channels_last if cl else torch.contiguous_format
-                if not got.is_contiguous(memory_format=fmt):
-                    failures.append(f"fused_group_norm output layout {shape} channels_last={cl}")
-                _check(f"f32  fused_group_norm {shape} G={groups} {'NHWC' if cl else 'NCHW'} act={act}", got,
-                       gn.fused_group_norm_plain(x, sc, bi, groups, 1e-5, act), F32_TOL, failures)
+                _gn_case(x, sc, bi, groups, 1e-5, act, f"f32  fused_group_norm {shape} G={groups}", F32_TOL, failures)
+    span = lambda xs: f"{min(xs):.4f}-{max(xs):.4f}"  # noqa: E731
+
+    def library(x, sc, bi, groups, eps, act):
+        """The yardstick: one PyTorch call of the same function (the port never calls it)."""
+        sc, bi = sc.to(x.dtype), bi.to(x.dtype)
+        if act == "silu":
+            return lambda: F.silu(F.group_norm(x, groups, sc, bi, eps))
+        return lambda: F.group_norm(x, groups, sc, bi, eps)
+
     row, per_shape = None, {}
     for shape, eps in GN_SHAPES:
         x, sc, bi = _gn_inputs(shape, torch.bfloat16, seed=1)
-        run = lambda: gn.fused_group_norm(x, sc, bi, 32, eps, "silu")  # noqa: E731
-        plain = lambda: gn.fused_group_norm_plain(x, sc, bi, 32, eps, "silu")  # noqa: E731
-        err = _check(f"bf16 fused_group_norm {shape} NCHW silu", run(), plain(), BF16_TOL, failures)
         x_cl = x.contiguous(memory_format=torch.channels_last)
-        _check(f"bf16 fused_group_norm {shape} NHWC silu", gn.fused_group_norm(x_cl, sc, bi, 32, eps, "silu"),
-               gn.fused_group_norm_plain(x_cl, sc, bi, 32, eps, "silu"), BF16_TOL, failures)
-        ms = cuda_ms(run, iters=20)
-        ms_cl = cuda_ms(lambda: gn.fused_group_norm(x_cl, sc, bi, 32, eps, "silu"), iters=20)
-        plain_ms = cuda_ms(plain, iters=5)
-        library_ms = cuda_ms(lambda: F.silu(F.group_norm(x, 32, sc.to(x.dtype), bi.to(x.dtype), eps)), iters=20)
-        n = x.numel()
-        # bytes: x read once, out written once; operations: about 12 float32
-        # operations an element (two sums, normalise, affine, SiLU)
-        bound_ms, bound_by = bound(12.0 * n, 2.0 * n * x.element_size(), PEAK_F32)
-        print(f"bf16 fused_group_norm {shape}: kernel {ms:.4f} ms (channels_last {ms_cl:.4f}), plain "
-              f"{plain_ms:.4f} ms, F.silu(F.group_norm) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}); {2.0 * n * x.element_size() / 1e6:.1f} MB", flush=True)
-        per_shape[str(shape)] = {"max_abs_err": err, "ms": ms, "ms_channels_last": ms_cl, "plain_ms": plain_ms,
-                                 "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        err, p = _gn_case(x, sc, bi, 32, eps, "silu", f"bf16 fused_group_norm {shape}", BF16_TOL, failures)
+        _, p_cl = _gn_case(x_cl, sc, bi, 32, eps, "silu", f"bf16 fused_group_norm {shape}", BF16_TOL, failures)
+        kern = lambda: gn.fused_group_norm(x, sc, bi, 32, eps, "silu")  # noqa: E731
+        kern_cl = lambda: gn.fused_group_norm(x_cl, sc, bi, 32, eps, "silu")  # noqa: E731
+        ks, ls = time_in_turns(kern, library(x, sc, bi, 32, eps, "silu"), cuda_ms)
+        ks_cl, ls_cl = time_in_turns(kern_cl, library(x_cl, sc, bi, 32, eps, "silu"), cuda_ms)
+        gs, gls = time_in_turns(kern, library(x, sc, bi, 32, eps, "silu"), graph_ms)
+        ms, library_ms, ms_cl, library_ms_cl = (median(v) for v in (ks, ls, ks_cl, ls_cl))
+        plain_ms = cuda_ms(lambda: gn.fused_group_norm_plain(x, sc, bi, 32, eps, "silu"), iters=5)
+        bound_ms, bound_by = _gn_bound(x)
+        print(f"bf16 fused_group_norm {shape} + SiLU: NCHW {p.route} (cluster {p.cluster}) kernel {ms:.4f} ms "
+              f"({span(ks)}), F.silu(F.group_norm) {library_ms:.4f} ms ({span(ls)}); channels_last {p_cl.route} "
+              f"(cluster {p_cl.cluster}) kernel {ms_cl:.4f} ms ({span(ks_cl)}), library {library_ms_cl:.4f} ms "
+              f"({span(ls_cl)}); in {FLASH_ROUNDS} rounds of {FLASH_CALLS} calls in turns; by CUDA-graph replay "
+              f"NCHW {median(gs):.4f} ms, library {median(gls):.4f} ms; plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f}% of it); "
+              f"{2.0 * x.numel() * x.element_size() / 1e6:.1f} MB", flush=True)
+        per_shape[str(shape)] = {"max_abs_err": err, "route": p.route, "cluster": p.cluster, "ms": ms,
+                                 "ms_rounds": ks, "library_ms": library_ms, "library_ms_rounds": ls,
+                                 "route_channels_last": p_cl.route, "ms_channels_last": ms_cl,
+                                 "ms_channels_last_rounds": ks_cl, "library_ms_channels_last": library_ms_cl,
+                                 "ms_graph": median(gs), "library_ms_graph": median(gls),
+                                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
         if row is None:  # the UNet's shape heads the row; the VAE's goes beside it
             row = {"name": "fused_group_norm", "route": "cuda", "source": KERNEL_SRC + "group_norm.cu",
                    "replaces": TPU_SRC + "groupnorm.py:62", "launches": None, "max_abs_err": err, "ms": ms,
@@ -1731,6 +1870,33 @@ def phase_group_norm():
                    "library_ms": library_ms}
         del x, x_cl
     row["shapes"] = per_shape
+    torch.cuda.empty_cache()
+    # the SD sweep, NCHW bf16
+    sweep, saved = [], {f"lr{lr}": 0.0 for lr in GN_SWEEP_LRS}
+    for shape, groups, eps, act, calls in gn_sweep():
+        x, sc, bi = _gn_inputs(shape, torch.bfloat16, seed=shape[1] + shape[2])
+        err, p = _gn_case(x, sc, bi, groups, eps, act, f"bf16 fused_group_norm {shape} G={groups} eps={eps}",
+                          BF16_TOL, failures)
+        kern = lambda: gn.fused_group_norm(x, sc, bi, groups, eps, act)  # noqa: E731
+        ks, ls = time_in_turns(kern, library(x, sc, bi, groups, eps, act), cuda_ms)
+        gs, gls = time_in_turns(kern, library(x, sc, bi, groups, eps, act), graph_ms)
+        ms, library_ms = median(ks), median(ls)
+        bound_ms, _ = _gn_bound(x)
+        for key, n in calls.items():
+            saved[key] += n * (library_ms - ms)
+        print(f"  sweep {shape} eps {eps} act {act} calls {calls}: {p.route} cluster {p.cluster}, kernel "
+              f"{ms:.4f} ms ({span(ks)}), library {library_ms:.4f} ms ({span(ls)}); by graph replay kernel "
+              f"{median(gs):.4f} ms, library {median(gls):.4f} ms; bound {bound_ms:.4f} ms "
+              f"({100 * bound_ms / median(gs):.1f}% by replay)", flush=True)
+        sweep.append({"shape": shape, "groups": groups, "eps": eps, "act": act, "calls": calls, "route": p.route,
+                      "cluster": p.cluster, "slice_bytes": p.slice_units * p.unit_bytes, "max_abs_err": err,
+                      "ms": ms, "ms_rounds": ks, "library_ms": library_ms, "library_ms_rounds": ls,
+                      "ms_graph": median(gs), "library_ms_graph": median(gls), "bound_ms": bound_ms})
+        del x
+    print("SD GroupNorm sweep: calls x (library - kernel) per serve, " + ", ".join(
+        f"{key} {v:.2f} ms ({sum(s['calls'][key] for s in sweep)} calls)" for key, v in saved.items()), flush=True)
+    row["sd_sweep"] = sweep
+    row["sd_sweep_saved_ms"] = saved
     torch.cuda.empty_cache()
     return row, failures
 

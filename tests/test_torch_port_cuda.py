@@ -465,6 +465,107 @@ def test_group_norm_matches_plain(group_norm, n, c, h, w, groups, channels_last,
         assert _rel_err(got, want) <= tol
 
 
+# (N, C, H, W, groups, dtype, the route the card's plan takes): a group that
+# a cluster holds, and groups larger than a cluster of 16 holds at the
+# largest slice (16 MB in bf16, 32 MB in float32)
+GN_ROUTES = [(2, 256, 64, 64, 32, torch.bfloat16, "resident"), (1, 64, 128, 128, 32, torch.float32, "resident"),
+             (1, 256, 1024, 1024, 32, torch.bfloat16, "streamed"), (1, 32, 1024, 1024, 4, torch.float32, "streamed")]
+
+
+def _gn_inputs(n, c, h, w, dtype, channels_last, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(n, c, h, w, generator=g) * 2 + 0.5).to("cuda", dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    return x, (1 + 0.1 * torch.randn(c, generator=g)).cuda(), (0.1 * torch.randn(c, generator=g)).cuda()
+
+
+@pytest.mark.parametrize("n,c,h,w,groups,dtype,route", GN_ROUTES)
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_group_norm_routes_count_and_repeat(group_norm, n, c, h, w, groups, dtype, route, channels_last):
+    """Each route at a shape the card's plan sends to it: one launch a call,
+    counted under its route; two calls bit-equal; the plain version's
+    tolerance."""
+    fgn = group_norm.fused_group_norm
+    x, scale, bias = _gn_inputs(n, c, h, w, dtype, channels_last, seed=c + h)
+    assert group_norm.plan_for(x, groups).route == route
+    before = fgn.launches, fgn.launches_resident, fgn.launches_streamed
+    got = fgn(x, scale, bias, groups, 1e-6, "silu")
+    again = fgn(x, scale, bias, groups, 1e-6, "silu")
+    torch.cuda.synchronize()
+    two = 2 if route == "resident" else 0
+    assert (fgn.launches, fgn.launches_resident, fgn.launches_streamed) == (
+        before[0] + 2, before[1] + two, before[2] + 2 - two)
+    assert torch.equal(got, again)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    assert _rel_err(got, group_norm.fused_group_norm_plain(x, scale, bias, groups, 1e-6, "silu")) <= tol
+
+
+# (N, C, H, W, groups): ragged; 16-byte units in one layout and not the
+# other; a 1x1 image
+GN_SMALL_CAP = [(2, 64, 13, 7, 32), (1, 48, 33, 31, 16), (2, 32, 16, 24, 4), (3, 32, 1, 1, 8)]
+
+
+@pytest.mark.parametrize("n,c,h,w,groups", GN_SMALL_CAP)
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("cap,cluster", [(64, 16), (64, 8), (256, 4), (256, 2), (4096, 1)])
+def test_group_norm_plans_with_a_small_capacity(group_norm, n, c, h, w, groups, channels_last, dtype, tol, cap,
+                                                cluster):
+    """Plans made for a card with ``cap`` bytes of shared memory a CTA (past
+    the reserved ones) and clusters of ``cluster``: at small shapes they take
+    clusters of up to 16, empty and ragged slices and the streamed route's
+    re-read, each against the plain version."""
+    x, scale, bias = _gn_inputs(n, c, h, w, dtype, channels_last, seed=c * h)
+    sms, _, active = group_norm.device_limits(0)
+    if cluster > 1 and not active[group_norm.CLUSTERS.index(cluster)]:
+        cluster = 8  # clusters of 16 do not schedule on this card
+    p = group_norm.plan(n, c, h, w, groups, x.element_size(), channels_last and h * w > 1, sms,
+                        group_norm.RESERVED + cap, active, cluster=cluster)
+    for act in (None, "silu"):
+        got = group_norm._launch(x, scale, bias, groups, 1e-5, act, p)
+        torch.cuda.synchronize()
+        assert _rel_err(got, group_norm.fused_group_norm_plain(x, scale, bias, groups, 1e-5, act)) <= tol
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_group_norm_unaligned_data(group_norm, channels_last):
+    """x at an address 2 bytes past a 16-byte boundary takes 2-byte units."""
+    n, c, h, w = 2, 64, 16, 16
+    buf = torch.randn(n * c * h * w + 1, device="cuda").to(torch.bfloat16)
+    x = buf[1:].view(n, h, w, c).permute(0, 3, 1, 2) if channels_last else buf[1:].view(n, c, h, w)
+    scale, bias = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+    assert group_norm.plan_for(x, 32).unit_bytes == 2
+    got = group_norm.fused_group_norm(x, scale, bias, 32, 1e-5, "silu")
+    torch.cuda.synchronize()
+    assert _rel_err(got, group_norm.fused_group_norm_plain(x, scale, bias, 32, 1e-5, "silu")) <= 3e-2
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_silu_elementwise_where_y_is_negative(group_norm, channels_last, dtype):
+    """SiLU on normalised values y in about [-8, -2] (x uniform, scale 1.7,
+    bias -5), element by element: where the output is 0.03-12% of |y|, an
+    approximate sigmoid shows that a norm over the largest value hides.
+    bf16 at most one unit in the last place from the plain version (each
+    rounds its float32 value once), float32 within 1e-5 of each value."""
+    n, c, h, w = 2, 64, 32, 32
+    g = torch.Generator().manual_seed(7)
+    x = torch.rand(n, c, h, w, generator=g).to("cuda", dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    scale, bias = torch.full((c,), 1.7, device="cuda"), torch.full((c,), -5.0, device="cuda")
+    got = group_norm.fused_group_norm(x, scale, bias, 32, 1e-5, "silu")
+    want = group_norm.fused_group_norm_plain(x, scale, bias, 32, 1e-5, "silu")
+    y = group_norm.fused_group_norm_plain(x.float(), scale, bias, 32, 1e-5, None)
+    assert float(y.min()) < -7.5 and float(y.max()) > -2.5
+    if dtype == torch.bfloat16:
+        ulps = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()  # all negative: one sign
+        assert int(ulps.max()) <= 1
+    else:
+        assert float(((got - want).abs() / want.abs()).max()) <= 1e-5
+
+
 def test_group_norm_refusals(group_norm):
     fgn = group_norm.fused_group_norm
     x = torch.randn(1, 64, 8, 8, device="cuda")
