@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (SRDiff x4 and SD x4-upscaler serving, SRDiff training) on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port (SRDiff x4 and SD x4 serving, SRDiff and educational training) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -133,6 +133,25 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    validation batch, none from backward; the step's time fed by the loader
    and with the batch ready, HR crops/s, the loader's share, the peak
    memory and the checkpoint save.
+13. The repaired SRDiff sampler API and SD class embedding
+   (``phase_sampler_api``), float32 card vs CPU: ``sample(...,
+   save_intermediate=True)`` (the image, each step's image and x0) and
+   ``p_sample`` at per-row timesteps on a small model (hidden 16, T = 8, HR
+   64), and the published-width SD UNet with ``num_class_embeds=None`` and
+   class labels (the timestep-style class embedding) at latent 32x32.
+14. The educational models (``phase_edu``) at the JAX defaults' widths on
+   ``synthetic_mnist``: for the AE, VAE, DDPM, simple GAN, DCGAN and
+   WGAN-GP tasks, one float32 loss and its gradients card vs CPU (a GAN's
+   whole round, update by update, with its BatchNorm statistics, Adam's
+   moments and the parameters after each), ten updates on one batch
+   lowering the loss, and the step's (round's) time with the batch on the
+   card at batch 128 (the DDPM at 64); ``GANTask.fit`` with validation and
+   its model IO round trip; the VAE and DDPM samplers (T = 1000, batch 16)
+   timed. Every kernel counter must read 0 across the phase.
+15. The native imresize (``phase_native``): the port's C++ library builds
+   on the card's host, ``imresize`` takes it by default and equals the
+   matrix path (uint8 exactly, float64 to 1e-12), and ``Measure.measure``
+   at 512x512 is timed with the matrix path and with the library in turns.
 
 Any failure exits non-zero. The line before the last is the kernel table
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -2754,6 +2773,525 @@ def phase_train(rows, card):
     return res, failures
 
 
+# --------------------------------------------------------------------------
+# The educational models (phase_edu), the native resize (phase_native) and
+# the SRDiff sampler API / SD class embedding repairs (phase_sampler_api).
+# None of these paths runs a port kernel, as in the JAX package: the
+# counters must read 0 across them.
+EDU_TASKS = ("ae", "vae", "ddpm", "gan", "dcgan", "wgan-gp")
+EDU_BATCH, EDU_DDPM_BATCH = 128, 64  # the timed steps' batch (the DDPM at 64)
+EDU_CHECK_BATCH = 8  # card vs CPU: the CPU runs the same float32 step
+EDU_DESCENT_STEPS, EDU_TIMED_STEPS = 10, 10
+EDU_SAMPLE_N, EDU_SAMPLE_T = 16, 1000  # the samplers at the default T; 250 if the phase would exceed 60 s
+EDU_HP = dict(compute_dtype="float32", lr=1e-3, clip_grad_norm=10.0, val_check_interval=0, tb_log_interval=1000)
+# A BatchNorm output within this of 0 may fall on either side of the (leaky) ReLU's kink on the card and
+# on the CPU (their batch variances sum in other orders), which changes that channel's gradient by one
+# activation's share: its BatchNorm and conv channel are then held to Adam's two-step bound alone.
+EDU_KINK = 1e-6
+EDU_STEP_FRAC = 2e-2  # a conditioned parameter's card-vs-CPU difference, in Adam steps (lr)
+
+
+def _edu_task(kind, device):
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.train.tasks.gan import GANTask
+    from dgm_img_super_resolution_tpu_torch.train.tasks.vae import AETask, DDPMTask, VAETask
+
+    hp = Hparams(**EDU_HP)
+    if kind in ("gan", "dcgan", "wgan-gp"):
+        return GANTask(hp, kind=kind, device=device)
+    return {"ae": AETask, "vae": VAETask, "ddpm": DDPMTask}[kind](hp, device=device)
+
+
+def _edu_images(n, size, seed, unit):
+    """n synthetic MNIST digits, NHWC float32 in [0, 1] (``unit``) or [-1, 1]."""
+    from dgm_img_super_resolution_tpu_torch.data.mnist import synthetic_mnist, to_model_input
+
+    x = to_model_input(synthetic_mnist(n, seed=seed)[0], size)
+    return (x + 1.0) / 2.0 if unit else x
+
+
+def _edu_batch(kind, n, seed=0):
+    if kind in ("gan", "dcgan", "wgan-gp"):
+        return _edu_images(n, 28, seed, unit=False)
+    return {"x": _edu_images(n, 32, seed, unit=kind != "ddpm")}
+
+
+def _edu_loss_kw(kind, n, device, seed):
+    """The draws of one loss, made on the CPU and fed to both devices."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    if kind == "vae":
+        return {"eps": torch.randn(n, 16, generator=g).to(device)}
+    if kind == "ddpm":
+        return {"t": torch.randint(0, 1000, (n,), generator=g).to(device),
+                "noise": torch.randn(n, 1, 32, 32, generator=g).to(device)}
+    return {}
+
+
+def _gan_draws(task, n, seed):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    out = {("z_gen", 0): torch.randn(n, task.z_dim, generator=g)}
+    for k in range(task.crit_repeats):
+        out[("z", k)] = torch.randn(n, task.z_dim, generator=g)
+        out[("eps", k)] = torch.rand(n, 1, 1, 1, generator=g)
+    return out
+
+
+def _edu_loss_card_vs_cpu(kind, dev, res, failures):
+    """One float32 loss and its gradients on the card and the CPU, the same
+    weights and draws."""
+    import torch
+
+    cpu_task, dev_task = _edu_task(kind, "cpu"), _edu_task(kind, dev)
+    cpu_model = cpu_task.init_params(0)
+    dev_model = dev_task.init_params(0).to(dev)
+    dev_model.load_state_dict(cpu_model.state_dict())
+    batch = _edu_batch(kind, EDU_CHECK_BATCH)
+    out = {}
+    for name, task, model, d in (("cpu", cpu_task, cpu_model, "cpu"), ("dev", dev_task, dev_model, dev)):
+        model.zero_grad(set_to_none=True)
+        b = {"x": torch.from_numpy(batch["x"]).permute(0, 3, 1, 2).to(d)}
+        loss, _ = task.loss_fn(model, b, None, **_edu_loss_kw(kind, EDU_CHECK_BATCH, d, seed=1))
+        loss.backward()
+        out[name] = (loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    (lc, gc), (ld, gd) = out["cpu"], out["dev"]
+    loss_rel = abs(ld - lc) / max(abs(lc), 1e-12)
+    worst, where = 0.0, None
+    for n, g in gc.items():
+        e = (gd[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+        if e > worst:
+            worst, where = e, n
+    ok = loss_rel <= F32_TOL and worst <= GRAD_TOL
+    print(f"card vs CPU, f32 {kind} loss and gradients B={EDU_CHECK_BATCH}: loss {ld:.6f} vs {lc:.6f} "
+          f"(rel {loss_rel:.2e}, tol {F32_TOL}), worst gradient {worst:.2e} of its max |CPU grad| at {where} "
+          f"(tol {GRAD_TOL}) {'ok' if ok else 'FAIL'}", flush=True)
+    res["card_vs_cpu"] = {"loss": ld, "loss_cpu": lc, "loss_rel": loss_rel, "grad_worst": worst, "grad_worst_at": where}
+    if not ok:
+        failures.append(f"edu {kind} card vs CPU")
+
+
+def _kink_channels(state):
+    """Forward hooks on every BatchNorm: the (model, module, channel)s with
+    an output within ``EDU_KINK`` of 0. Returns (found, remove)."""
+    from dgm_img_super_resolution_tpu_torch.models.layers import BatchNorm
+
+    found, handles = set(), []
+    for part, mod in (("gen", state.gen), ("disc", state.disc)):
+        for name, m in mod.named_modules():
+            if isinstance(m, BatchNorm):
+                def hook(m, i, o, part=part, name=name):
+                    near = (o.detach().abs() < EDU_KINK).transpose(0, 1).reshape(o.shape[1], -1).any(dim=1)
+                    found.update((part, name, int(c)) for c in near.nonzero().flatten().tolist())
+                handles.append(m.register_forward_hook(hook))
+    return found, lambda: [h.remove() for h in handles]
+
+
+def _kink_free(part, pname, shape, kinks):
+    """False on the elements a kink channel's gradient reaches: its
+    BatchNorm's weight and bias, its conv's (``conv<i>`` / ``deconv<i>``
+    before ``bn<i>``) output channel."""
+    import torch
+
+    free = torch.ones(shape, dtype=torch.bool)
+    prefix, _, leaf = pname.rpartition(".")
+    parent, _, mod = prefix.rpartition(".")
+    for kpart, kname, c in kinks:
+        kparent, _, kmod = kname.rpartition(".")
+        idx = kmod.removeprefix("bn")
+        if kpart != part or kparent != parent:
+            continue
+        if mod == kmod or (mod in (f"conv{idx}", f"deconv{idx}") and leaf == "bias") or mod == f"conv{idx}":
+            free[c] = False
+        elif mod == f"deconv{idx}":
+            free[:, c] = False
+    return free
+
+
+def _gan_state_into(dst, src):
+    """Copy a GANState's models and optimizers into ``dst`` (the optimizers'
+    state deep-copied: on one device ``load_state_dict`` would share it)."""
+    import copy
+
+    dst.gen.load_state_dict(src.gen.state_dict())
+    dst.disc.load_state_dict(src.disc.state_dict())
+    dst.gen_opt.load_state_dict(copy.deepcopy(src.gen_opt.state_dict()))
+    dst.disc_opt.load_state_dict(copy.deepcopy(src.disc_opt.state_dict()))
+
+
+def _gan_round_card_vs_cpu(kind, dev, res, failures):
+    """One whole round (K critic updates, then the generator's) on the card
+    and the CPU, update by update from the CPU's state, the same draws:
+    each update's loss (rel F32_TOL), its model's BatchNorm statistics (rel
+    F32_TOL), Adam's first moments (GRAD_TOL of the model's largest), the
+    parameters (EDU_STEP_FRAC of a step where a gradient error of
+    GRAD_TOL moves Adam's step by less, two steps elsewhere; a conv bias
+    before a train-mode BatchNorm has a gradient of exactly 0, so Adam
+    moves it by rounding noise on each side)."""
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.train.tasks.gan import _draw_fn
+
+    cpu_task, dev_task = _edu_task(kind, "cpu"), _edu_task(kind, dev)
+    cs, ds = cpu_task.init_state(0), dev_task.init_state(0)
+    n = EDU_CHECK_BATCH
+    real = _edu_batch(kind, n)
+    draws = _gan_draws(cpu_task, n, seed=2)
+
+    updates = [("disc", k) for k in range(cpu_task.crit_repeats)] + [("gen", 0)]
+    worst = {"loss": 0.0, "stats": 0.0, "moment": 0.0, "param_steps": 0.0, "param_steps_unconditioned": 0.0}
+    bad = []
+    for which, k in updates:
+        _gan_state_into(ds, cs)
+        before = {i: st["exp_avg"].clone() for i, st in getattr(cs, which + "_opt").state_dict()["state"].items()}
+        outs = {}
+        for name, task, st, d in (("cpu", cpu_task, cs, "cpu"), ("dev", dev_task, ds, dev)):
+            draw = _draw_fn(draws, None, torch.device(d))
+            kinks, unhook = _kink_channels(st)
+            if which == "disc":
+                loss, _ = task._disc_update(st, task._real(real), k, draw)
+            else:
+                loss = task._gen_update(st, n, draw)
+            unhook()
+            outs[name] = (loss.item(), kinks)
+        (lc, kc), (ld, kd) = outs["cpu"], outs["dev"]
+        kinks = kc | kd
+        worst["loss"] = max(worst["loss"], abs(ld - lc) / max(abs(lc), 1e-12))
+        for part in ("gen", "disc"):
+            cm, dm = getattr(cs, part), getattr(ds, part)
+            csd, dsd = cm.state_dict(), dm.state_dict()
+            for key in [k_ for k_ in csd if "running_" in k_]:
+                e = (dsd[key].cpu() - csd[key]).abs().max().item() / max(csd[key].abs().max().item(), 1.0)
+                worst["stats"] = max(worst["stats"], e)
+            if part != which:
+                continue
+            names = [n_ for n_, _ in cm.named_parameters()]
+            copt = getattr(cs, part + "_opt").state_dict()["state"]
+            dopt = getattr(ds, part + "_opt").state_dict()["state"]
+            mu_max = max(copt[i]["exp_avg"].abs().max().item() for i in range(len(names)))
+            b1 = cpu_task.b1
+            for i, pn in enumerate(names):
+                mu_c, mu_d = copt[i]["exp_avg"], dopt[i]["exp_avg"].cpu()
+                g = (mu_c - (b1 * before[i] if i in before else 0.0)) / (1.0 - b1)  # this update's gradient
+                free = _kink_free(part, pn, g.shape, kinks)
+                e = ((mu_d - mu_c).abs() * free).max().item() / mu_max
+                worst["moment"] = max(worst["moment"], e)
+                delta = GRAD_TOL * (1.0 - b1) * mu_max
+                cond = ((g.abs() + 1e-8) ** 2 >= 1e-8 * delta / EDU_STEP_FRAC) & free
+                diff = (dsd[pn].cpu() - csd[pn]).abs() / cpu_task.lr
+                if cond.any():
+                    worst["param_steps"] = max(worst["param_steps"], diff[cond].max().item())
+                worst["param_steps_unconditioned"] = max(worst["param_steps_unconditioned"], diff.max().item())
+        if worst["loss"] > F32_TOL or worst["stats"] > F32_TOL or worst["moment"] > GRAD_TOL:
+            bad.append(f"{which}{k}")
+    ok = (not bad and worst["param_steps"] <= EDU_STEP_FRAC + 1e-3 and worst["param_steps_unconditioned"] <= 2.0)
+    print(f"card vs CPU, f32 {kind} round of {len(updates)} updates B={n}, update by update: worst loss rel "
+          f"{worst['loss']:.2e}, BatchNorm statistics {worst['stats']:.2e} (tol {F32_TOL}), Adam first moment "
+          f"{worst['moment']:.2e} of the largest (tol {GRAD_TOL}), parameters {worst['param_steps']:.2e} Adam steps "
+          f"where conditioned (tol {EDU_STEP_FRAC}), {worst['param_steps_unconditioned']:.2f} anywhere (tol 2) "
+          f"{'ok' if ok else 'FAIL ' + ','.join(bad)}", flush=True)
+    res["card_vs_cpu"] = worst
+    if not ok:
+        failures.append(f"edu {kind} card vs CPU round")
+
+
+def _edu_descent_and_time(kind, dev, res, failures):
+    """Ten updates on one batch lower the loss (a GAN's: the discriminator's
+    loss of the round, on fixed draws); then the step's (round's) time with
+    the batch on the card, at EDU_BATCH (the DDPM at EDU_DDPM_BATCH)."""
+    import numpy as np
+    import torch
+
+    task = _edu_task(kind, dev)
+    n = EDU_DDPM_BATCH if kind == "ddpm" else EDU_BATCH
+    gan = kind in ("gan", "dcgan", "wgan-gp")
+    if gan:
+        state = task.init_state(0)
+        real = task._real(_edu_batch(kind, n, seed=3))
+        draws = {k: v.to(dev) for k, v in _gan_draws(task, n, seed=4).items()}
+
+        def step():
+            return task.train_step(state, real, noise=draws)[1]["disc_loss"]
+    else:
+        trainer = task.make_trainer(dev)
+        state = trainer.init_state(0)
+        b = {"x": torch.from_numpy(_edu_batch(kind, n, seed=3)["x"]).to(dev)}  # NHWC, on the card: the batch ready
+        kw = _edu_loss_kw(kind, n, dev, seed=5)  # the same draws every step: one objective
+
+        def step():
+            return trainer.train_step(state, b, None, **kw)[1]["loss"]
+    losses = [float(step()) for _ in range(EDU_DESCENT_STEPS + 1)]
+    ok = losses[-1] < losses[0] and all(np.isfinite(losses))
+    ms = []
+    for _ in range(EDU_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    step_ms = float(np.median(ms))
+    what = "round (K critic updates + 1 generator update)" if gan else "training step"
+    print(f"{kind}: {EDU_DESCENT_STEPS} updates on one batch {'(the discriminator loss) ' if gan else ''}"
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} {'ok' if ok else 'FAIL'}; {what} B={n} median of "
+          f"{EDU_TIMED_STEPS}: {step_ms:.2f} ms ({n / step_ms * 1e3:.1f} images/s)", flush=True)
+    res.update(descent=losses, step_ms=step_ms, images_per_s=n / step_ms * 1e3, batch=n)
+    if not ok:
+        failures.append(f"edu {kind} descent")
+    return task, state
+
+
+def phase_edu(rows, card, dev="cuda"):
+    """The six educational tasks at the JAX defaults' widths: card vs CPU,
+    the descent, the step times; GANTask.fit with validation and its model
+    IO; the VAE and DDPM samplers timed; every kernel counter 0 across it."""
+    import itertools
+    import tempfile
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = _counters()
+    _reset_counts(counters)
+    t_phase = time.perf_counter()
+    res, failures, kept = {}, [], {}
+    for kind in EDU_TASKS:
+        r = res[kind] = {}
+        if kind in ("gan", "dcgan", "wgan-gp"):
+            _gan_round_card_vs_cpu(kind, dev, r, failures)
+        else:
+            _edu_loss_card_vs_cpu(kind, dev, r, failures)
+        kept[kind] = _edu_descent_and_time(kind, dev, r, failures)
+
+    task = _edu_task("wgan-gp", dev)
+    data = itertools.repeat(_edu_batch("wgan-gp", 64, seed=6))
+    t0 = time.perf_counter()
+    state, results = task.fit(data, epochs=1, steps_per_epoch=4, seed=0, val_iter=data, val_steps=2)
+    fit_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        task.save_model_info(state, tmp)
+        loaded = task.load_model_info(tmp)
+    same = all(torch.equal(a, b) for m, l in ((state.gen, loaded.gen), (state.disc, loaded.disc))
+               for a, b in zip(m.state_dict().values(), l.state_dict().values()))
+    same = same and loaded.step == state.step and all(
+        torch.equal(a[k], b[k]) for o, lo in ((state.gen_opt, loaded.gen_opt), (state.disc_opt, loaded.disc_opt))
+        for a, b in zip(o.state_dict()["state"].values(), lo.state_dict()["state"].values()) for k in a)
+    finite = all(v == v and abs(v) < float("inf") for vs in results.values() for v in vs)
+    ok = same and finite and all(len(v) == 1 for v in results.values())
+    print(f"wgan-gp fit: 1 epoch of 4 rounds B=64 + 2 validation batches in {fit_s:.2f} s, losses "
+          f"{ {k: round(v[0], 4) for k, v in results.items()} }; save_model_info / load_model_info give back "
+          f"the same state: {'ok' if ok else 'FAIL'}", flush=True)
+    res["fit"] = {"seconds": fit_s, "results": results, "round_trip_equal": same}
+    if not ok:
+        failures.append("edu GAN fit / model IO")
+
+    (vae_task, vae_state), (ddpm_task, ddpm_state) = kept["vae"], kept["ddpm"]
+    vae_model, ddpm_model = vae_state.model, ddpm_state.model
+    g = torch.Generator(device=dev).manual_seed(7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v = vae_task.sample(vae_model, n=EDU_SAMPLE_N, generator=g)
+    torch.cuda.synchronize()
+    vae_ms = 1e3 * (time.perf_counter() - t0)
+    # the T-step chain's time from 5 of its steps: at T = 250 if T = 1000 would take the phase past 60 s
+    x = torch.randn(EDU_SAMPLE_N, 1, 32, 32, device=dev, generator=g)
+    with torch.no_grad():
+        ddpm_model.p_sample_step(x, 999, x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(999, 994, -1):
+            ddpm_model.p_sample_step(x, t, x)
+        torch.cuda.synchronize()
+    per_step_s = (time.perf_counter() - t0) / 5
+    steps = EDU_SAMPLE_T if time.perf_counter() - t_phase + EDU_SAMPLE_T * per_step_s <= 60 else 250
+    if steps != ddpm_task.ddpm.num_timesteps:
+        from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+        from dgm_img_super_resolution_tpu_torch.train.tasks.vae import DDPMTask
+
+        short = DDPMTask(Hparams(**dict(EDU_HP, ddpm_timesteps=steps)), device=dev)
+        short.model.load_state_dict(ddpm_model.state_dict())
+        ddpm_task, ddpm_model = short, short.model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = ddpm_task.sample(ddpm_model, n=EDU_SAMPLE_N, generator=g)
+    torch.cuda.synchronize()
+    ddpm_s = time.perf_counter() - t0
+    ok = (tuple(v.shape) == (EDU_SAMPLE_N, 1, 32, 32) and tuple(s.shape) == (EDU_SAMPLE_N, 1, 32, 32)
+          and bool(torch.isfinite(v).all() and torch.isfinite(s).all()) and 0 <= float(v.min())
+          and float(v.max()) <= 1)
+    print(f"{card}: VAE sample of {EDU_SAMPLE_N} in {vae_ms:.2f} ms; DDPM sample of {EDU_SAMPLE_N} at 32x32 over "
+          f"T = {steps}{' (cut from 1000 to keep the phase near 60 s)' if steps != 1000 else ''} in {ddpm_s:.2f} s "
+          f"({steps / ddpm_s:.1f} UNet calls/s) {'ok' if ok else 'FAIL'}", flush=True)
+    res["samplers"] = {"vae_ms": vae_ms, "ddpm_s": ddpm_s, "ddpm_T": steps, "n": EDU_SAMPLE_N}
+    if not ok:
+        failures.append("edu samplers")
+
+    launches = {k: v for k, v in _read_counts(counters).items() if v}
+    print(f"edu phase kernel launches: {launches or 'none'} {'ok' if not launches else 'FAIL'}", flush=True)
+    if launches:
+        failures.append(f"edu phase launched port kernels {launches}")
+    for row in rows:
+        if "shape" not in row:
+            row.setdefault("launches_paths", {})["edu_phase"] = launches.get(row["name"], 0)
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"edu phase {res['phase_s']:.1f} s", flush=True)
+    return res, failures
+
+
+NATIVE_SHAPES = (((512, 512, 3), 0.25), ((37, 53, 3), 1.7), ((128, 96, 3), 4.0), ((300, 200), 0.37))
+NATIVE_MEASURE_ROUNDS = 5
+
+
+def phase_native(card, dev="cuda"):
+    """The port's native library builds on the card's host, ``imresize``
+    takes it by default and equals the matrix path (uint8 exactly, float64
+    to 1e-12); ``Measure.measure`` at 512^2 timed with the matrix path and
+    with the library, in turns."""
+    import numpy as np
+
+    from dgm_img_super_resolution_tpu_torch import native
+    from dgm_img_super_resolution_tpu_torch.metrics.measure import Measure
+    from dgm_img_super_resolution_tpu_torch.ops.resize import imresize
+
+    res, failures = {}, []
+    t0 = time.perf_counter()
+    built = native.available()
+    res["build_s"] = time.perf_counter() - t0
+    print(f"native imageops: {'built' if built else 'FAILED to build'} in {res['build_s']:.2f} s", flush=True)
+    if not built:
+        return res, ["native library did not build"]
+    rng = np.random.default_rng(0)
+    worst_f, u8_diff, default_native = 0.0, 0, True
+    for shape, scale in NATIVE_SHAPES:
+        u8 = rng.integers(0, 256, shape, dtype=np.uint8)
+        f = rng.uniform(0, 1, shape)
+        out_hw = (int(np.ceil(scale * shape[0])), int(np.ceil(scale * shape[1])))
+        default_native &= bool(np.array_equal(imresize(u8, scale=scale), native.matlab_resize(u8, out_hw)))
+        u8_diff += int((imresize(u8, scale=scale, use_native=True)
+                        != imresize(u8, scale=scale, use_native=False)).sum())
+        worst_f = max(worst_f, float(np.abs(imresize(f, scale=scale, use_native=True)
+                                            - imresize(f, scale=scale, use_native=False)).max()))
+    ok = default_native and u8_diff == 0 and worst_f <= 1e-12
+    print(f"native imresize vs the matrix path at {len(NATIVE_SHAPES)} shapes: uint8 pixels differing {u8_diff}, "
+          f"float64 max |diff| {worst_f:.2e} (tol 1e-12), default routes to native {default_native} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    res.update(u8_pixels_differing=u8_diff, f64_max_abs=worst_f, default_native=default_native)
+    if not ok:
+        failures.append("native imresize vs the matrix path")
+
+    sr = rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+    hr = rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+    lr = rng.integers(0, 256, (128, 128, 3), dtype=np.uint8)
+    by = {False: Measure(device=dev, use_native=False), None: Measure(device=dev)}
+    times = {False: [], None: []}
+    outs = {}
+    for m in by.values():
+        m.measure(sr, hr, lr, 4)  # warm-up
+    for _ in range(NATIVE_MEASURE_ROUNDS):
+        for key in (False, None, None, False):
+            t0 = time.perf_counter()
+            outs[key] = by[key].measure(sr, hr, lr, 4)
+            times[key].append(1e3 * (time.perf_counter() - t0))
+    mat, nat = float(np.median(times[False])), float(np.median(times[None]))
+    same = outs[False] == outs[None] or all(
+        (a == b) or (a != a and b != b) for a, b in zip(outs[False].values(), outs[None].values()))
+    print(f"{card}: Measure.measure at 512x512 (x4, lr_psnr through imresize), median of "
+          f"{2 * NATIVE_MEASURE_ROUNDS} in turns: {mat:.2f} ms with the matrix path, {nat:.2f} ms with native; "
+          f"the same scores {'ok' if same else 'FAIL'}", flush=True)
+    res["measure_ms"] = {"matrix": mat, "native": nat}
+    if not same:
+        failures.append("Measure native vs matrix")
+    return res, failures
+
+
+def phase_sampler_api(dev="cuda"):
+    """The repaired SRDiff sampler API and SD class embedding on the card
+    against the CPU, float32 with TF32 off: ``sample(save_intermediate=True)``
+    and ``p_sample`` on a small model (hidden 16, mults 1|2, T = 8, HR 64,
+    B = 2; no kernel route at hidden 16), then the published-width SD UNet
+    with ``num_class_embeds=None`` and class labels at latent 32x32."""
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.ckpt.sd_inventory import X4_UNET_CONFIG
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.models.factory import build_srdiff, init_srdiff_params
+    from dgm_img_super_resolution_tpu_torch.models.sd.pipeline import init_sd_params
+    from dgm_img_super_resolution_tpu_torch.models.sd.unet import UNet2DCondition
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res, failures = {}, []
+    hp = Hparams(hidden_size=16, unet_dim_mults="1|2", rrdb_num_block=2, rrdb_num_feat=16, timesteps=8,
+                 compute_dtype="float32")
+    cpu = init_srdiff_params(build_srdiff(hp), seed=8).eval()
+    gpu = build_srdiff(hp).eval().to(dev)
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(9)
+    lr, up = torch.rand(2, 3, 16, 16, generator=g) * 2 - 1, torch.rand(2, 3, 64, 64, generator=g) * 2 - 1
+    noise = (torch.randn(2, 3, 64, 64, generator=g), {t: torch.randn(2, 3, 64, 64, generator=g) for t in range(8)})
+    with torch.inference_mode():
+        want = cpu.sample(lr, up, noise=noise, save_intermediate=True)
+        got = gpu.sample(lr.to(dev), up.to(dev), noise=noise, save_intermediate=True)
+        plain, _ = gpu.sample(lr.to(dev), up.to(dev), noise=noise)
+        err = max(rel_err(a.cpu(), b)[0] for a, b in ((got[0], want[0]), (got[2][0], want[2][0]),
+                                                        (got[2][1], want[2][1])))
+        # sample()'s image against this one on the card: the same code path (bit for bit on the CPU,
+        # tests/test_torch_port_sampler_api.py), but cuDNN's transposed convs (backward-data algorithms)
+        # may add in another order from run to run, so the bound is the card-vs-CPU one
+        plain_err = rel_err(plain.cpu(), got[0].cpu())[0]
+        ok = err <= E2E_TOL and plain_err <= E2E_TOL and tuple(got[2][0].shape) == (8, 2, 3, 64, 64)
+        print(f"card vs CPU, f32 sample(save_intermediate=True) T=8 B=2 64x64: max_abs_err {err:.3e} over the image "
+              f"and the 8 steps' images and x0s; sample()'s image against it {plain_err:.3e} (tol {E2E_TOL}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        res["save_intermediate"] = {"max_abs_err": err, "sample_vs_intermediate_max_abs_err": plain_err}
+        if not ok:
+            failures.append("sample(save_intermediate) card vs CPU")
+        _, cond = cpu.rrdb_cond(lr, up)
+        x, t, step = noise[0], torch.tensor([7, 2]), noise[1][3]
+        want = cpu.p_sample(x, t, cond, up, step)
+        _, gcond = gpu.rrdb_cond(lr.to(dev), up.to(dev))
+        got = gpu.p_sample(x.to(dev), t.to(dev), gcond, up.to(dev), step.to(dev))
+        err, rel = rel_err(tuple(v.cpu() for v in got), want)
+        # eps within F32_TOL (one UNet forward), which the x0 step scales by sqrt((1 - a_t) / a_t) at t = 7
+        a_t = float(cpu.schedule.alphas_cumprod[7])
+        tol = F32_TOL * (1.0 + ((1.0 - a_t) / a_t) ** 0.5)
+        ok = rel <= tol
+        print(f"card vs CPU, f32 p_sample (per-row t 7, 2; raw condition) B=2 64x64: max_abs_err {err:.3e} "
+              f"rel {rel:.3e} (tol {tol:.2e}: {F32_TOL} on eps x the x0 step's sqrt((1 - a_t) / a_t) at t = 7) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        res["p_sample"] = {"max_abs_err": err, "rel_err": rel, "tol": tol}
+        if not ok:
+            failures.append("p_sample card vs CPU")
+    del cpu, gpu
+
+    cfg = dict(X4_UNET_CONFIG, num_class_embeds=None)
+    cpu = UNet2DCondition(cfg).eval()
+    init_sd_params(cpu, seed=10)
+    with torch.device(dev):
+        gpu = UNet2DCondition(cfg).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(11)
+    x, ctx = torch.randn(2, 7, 32, 32, generator=g), torch.randn(2, 77, 1024, generator=g)
+    t, labels = torch.tensor([951, 1]), torch.tensor([20, 350])
+    with torch.inference_mode():
+        want = cpu(x, t, ctx, labels)
+        got = gpu(x.to(dev), t.to(dev), ctx.to(dev), labels.to(dev)).cpu()
+        err, rel = rel_err(got, want)
+        ok = rel <= F32_TOL and bool(torch.isfinite(got).all())
+        print(f"card vs CPU, f32 SD UNet published widths with num_class_embeds=None and class labels (the "
+              f"timestep-style class embedding), latent 32x32 B=2: max_abs_err {err:.3e} rel {rel:.3e} "
+              f"(tol {F32_TOL}) {'ok' if ok else 'FAIL'}", flush=True)
+        res["sd_class_embedding"] = {"max_abs_err": err, "rel_err": rel}
+        if not ok:
+            failures.append("SD timestep class embedding card vs CPU")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return res, failures
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None, help="directory for the full results")
@@ -2795,7 +3333,10 @@ def main() -> int:
     sd_local, f10 = phase_sd_local_checkpoint(rows)
     sd_e2e, f8 = phase_sd_card_vs_cpu()
     train, f11 = phase_train(rows, card)
-    failures += f3 + f3c + f3b + f4 + f4b + f5 + f6 + f7 + f7b + f9 + f10 + f8 + f11
+    sampler_api, f12 = phase_sampler_api()
+    edu, f13 = phase_edu(rows, card)
+    native, f14 = phase_native(card)
+    failures += f3 + f3c + f3b + f4 + f4b + f5 + f6 + f7 + f7b + f9 + f10 + f8 + f11 + f12 + f13 + f14
     missing = [row["name"] for row in rows if row["launches"] is None]
     if missing:
         failures.append(f"no launch count for {missing}")
@@ -2804,7 +3345,8 @@ def main() -> int:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "kernels": rows, "pipeline": pipe, "serving_paths": paths, "bf16_forward": fwd16,
              "card_vs_cpu": e2e, "backward": bwd, "sd": sd, "sd_options": sd_opts, "checkpoint_cli": ckpt_cli,
-             "sd_local_checkpoint": sd_local, "sd_card_vs_cpu": sd_e2e, "train": train, "failures": failures},
+             "sd_local_checkpoint": sd_local, "sd_card_vs_cpu": sd_e2e, "train": train,
+             "sampler_api": sampler_api, "edu": edu, "native": native, "failures": failures},
             indent=1))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -22,6 +22,11 @@ the JAX package's LPIPS (``metrics/lpips.py``) and VGG19
 (``metrics/perceptual.py``) Flax trees, whose port modules keep the Flax
 module names; ``jax_npz_to_state_dict`` reads such a tree from the JAX
 package's ``.npz`` weight files ('/'-joined keys).
+
+``jax_module_params_to_state_dict`` carries the educational models across
+(the AE and VAE, the GANs with their BatchNorm statistics, the DDPM UNet,
+``MultiheadAttention``): their port modules keep the flax module names, so
+the port module a leaf lands in decides its layout.
 """
 
 from __future__ import annotations
@@ -168,3 +173,69 @@ def jax_npz_to_state_dict(path: str) -> dict[str, torch.Tensor]:
                 node = node.setdefault(p, {})
             node[leaf] = raw[key]
     return jax_conv_params_to_state_dict(tree)
+
+
+# Flax module paths of the educational models -> the port's module names, where they differ: the
+# ResnetBlocks and Blocks of the DDPM UNet keep the SRDiff UNet's torch layout (``block1.block.1`` ...)
+_EDU_RENAMES = [
+    (r"(^|/)(block[12])/conv$", r"\1\2/block/1"),
+    (r"(^|/)(block[12])/norm$", r"\1\2/block/2"),
+    (r"(_res[12])/mlp$", r"\1/mlp/1"),
+    (r"(_downsample)/conv$", r"\1/conv/1"),
+    (r"(_upsample)/conv$", r"\1/conv/0"),
+    (r"^final_res/conv$", r"final_res/block/1"),
+    (r"^final_res/norm$", r"final_res/block/2"),
+]
+# MultiheadAttention's flax leaves -> (the port's parameter name, transposed)
+_MHA_LEAVES = {"in_proj_kernel": ("in_proj_weight", True), "in_proj_bias": ("in_proj_bias", False),
+               "out_proj_kernel": ("out_proj.weight", True), "out_proj_bias": ("out_proj.bias", False),
+               "bias_k": ("bias_k", False), "bias_v": ("bias_v", False)}
+
+
+def jax_module_params_to_state_dict(model: torch.nn.Module, params: Mapping,
+                                    batch_stats: Mapping | None = None) -> dict[str, torch.Tensor]:
+    """A JAX educational model's ``params`` (and BatchNorm ``batch_stats``),
+    nested dicts of numpy arrays -> the float32 ``state_dict`` of the port's
+    ``model`` (``models/{autoencoder,gan,ddpm_unet}.py``, or a
+    ``MultiheadAttention``), whose modules carry the flax names. Each leaf's
+    layout follows the port module it lands in: ``Linear`` kernels (I, O)
+    -> (O, I), ``Conv2d`` HWIO -> (O, I, kh, kw), ``ConvTranspose2d`` (the
+    JAX ``ConvTranspose2dTorch``, pre-flipped HWIO) -> (I, O, kh, kw)
+    flipped back, norm ``scale`` -> ``weight``, BatchNorm ``mean`` / ``var``
+    -> ``running_mean`` / ``running_var``, ``MultiheadAttention``'s packed
+    kernels transposed. Raises on a leaf it cannot place."""
+    from dgm_img_super_resolution_tpu_torch.models.layers import BatchNorm, MultiheadAttention
+
+    out: dict[str, torch.Tensor] = {}
+    trees = [(p, v, False) for p, v in _flatten(params)]
+    trees += [(p, v, True) for p, v in _flatten(batch_stats or {})]
+    for path, v, is_stat in trees:
+        if path[0] in ("params", "batch_stats"):
+            path = path[1:]
+        arr = np.asarray(v, dtype=np.float32)
+        module, leaf = "/".join(path[:-1]), path[-1]
+        for pat, repl in _EDU_RENAMES:
+            module = re.sub(pat, repl, module)
+        name = module.replace("/", ".")
+        try:
+            mod = model.get_submodule(name)
+        except AttributeError:
+            raise KeyError(f"cannot carry JAX param {'/'.join(path)} across: no module {name!r}") from None
+        prefix = f"{name}." if name else ""
+        if isinstance(mod, MultiheadAttention) and leaf in _MHA_LEAVES:
+            target, transpose = _MHA_LEAVES[leaf]
+            arr = _dense(arr) if transpose else arr
+        elif is_stat and isinstance(mod, BatchNorm) and leaf in ("mean", "var"):
+            target = f"running_{leaf}"
+        elif leaf == "bias":
+            target = "bias"
+        elif leaf == "scale" and isinstance(mod, (torch.nn.GroupNorm, BatchNorm)):
+            target = "weight"
+        elif leaf == "kernel" and isinstance(mod, (torch.nn.Linear, torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+            target = "weight"
+            arr = {torch.nn.Linear: _dense, torch.nn.Conv2d: _conv, torch.nn.ConvTranspose2d: _convt}[type(mod)](arr)
+        else:
+            raise KeyError(f"cannot carry JAX param {'/'.join(path)} across to {type(mod).__name__}")
+        # a copy: through ascontiguousarray a flipped axis of size 1 keeps its negative stride
+        out[prefix + target] = torch.from_numpy(np.array(arr, order="C"))
+    return out

@@ -165,6 +165,9 @@ def unet_state_dict_shapes(cfg: dict = X4_UNET_CONFIG) -> dict[str, tuple]:
     _lin(sd, "time_embedding.linear_2", tdim, tdim)
     if cfg.get("num_class_embeds"):
         sd["class_embedding.weight"] = (cfg["num_class_embeds"], tdim)
+    else:  # the timestep-style class embedding the port's UNet builds then
+        _lin(sd, "class_embedding.linear_1", tdim, chs[0])
+        _lin(sd, "class_embedding.linear_2", tdim, tdim)
 
     cin = chs[0]
     for i, ch in enumerate(chs):

@@ -30,6 +30,8 @@ _UNET_RULES = [
     (r"^time_embed_0$", r"time_embedding.linear_1"),
     (r"^time_embed_1$", r"time_embedding.linear_2"),
     (r"^class_embedding$", r"class_embedding"),
+    (r"^class_embed_0$", r"class_embedding.linear_1"),
+    (r"^class_embed_1$", r"class_embedding.linear_2"),
     (r"^down_(\d+)_res_(\d+)/(.*)$", r"down_blocks.\1.resnets.\2.\3"),
     (r"^down_(\d+)_attn_(\d+)/(.*)$", r"down_blocks.\1.attentions.\2.\3"),
     (r"^down_(\d+)_downsample$", r"down_blocks.\1.downsamplers.0.conv"),

@@ -125,11 +125,13 @@ class GaussianDiffusion(nn.Module):
             out, feas = self.rrdb(img_lr, True)
             return out, torch.cat(feas[2::3], dim=1)
 
-    def sample_prepare(self, img_lr, img_lr_up, noise=None, generator=None):
+    def sample_prepare(self, img_lr, img_lr_up, noise=None, generator=None, shape=None):
         """Everything before the sampler loop: the RRDB condition (once), its
-        projection with the up-projection folded in, and the initial state.
-        Returns ``(x, cond, rrdb_out, hook)``."""
-        shape = tuple(img_lr_up.shape)
+        projection with the up-projection folded in, and the initial state
+        of ``shape`` (``img_lr_up``'s by default): the noise itself, or in
+        the non-residual regime the noised ``img_lr_up`` at t = T - 1 (JAX
+        ``:318-338``). Returns ``(x, cond, rrdb_out, hook)``."""
+        shape = tuple(shape) if shape is not None else tuple(img_lr_up.shape)
         hook = as_noise_hook(noise, shape, img_lr_up.device, generator)
         rrdb_out, cond = self.rrdb_cond(img_lr, img_lr_up)
         cond = self.denoise_fn.project(cond, img_lr_up)
@@ -183,6 +185,19 @@ class GaussianDiffusion(nn.Module):
         mean, _, log_variance, x0 = self.p_mean_variance(x, t, noise_pred, clip_denoised)
         nonzero = (t.to(x.device) > 0).to(x.dtype).view(-1, *([1] * (x.ndim - 1)))
         return mean + nonzero * torch.exp(0.5 * log_variance) * noise, x0
+
+    def p_sample(self, x, t, cond, img_lr_up, noise, noise_pred=None, clip_denoised: bool = True,
+                 cond_projected: bool = False):
+        """One ancestral step at timesteps ``t`` (an int, or per row (B,))
+        (JAX ``:310``): eps from the UNet unless given as ``noise_pred``;
+        ``cond`` the RRDB features, or as ``sample_prepare`` returns them
+        when ``cond_projected``; ``noise`` the step's noise (JAX draws it
+        from its key). Returns (x_{t-1}, x0)."""
+        t = torch.as_tensor(t, dtype=torch.long, device=x.device).expand(x.shape[0])
+        if noise_pred is None:
+            kw = dict(cond_projected=True, up_folded=True) if cond_projected else {}
+            noise_pred = self.denoise_fn(x, t, cond, img_lr_up, **kw).float()
+        return self.p_sample_from_pred(x, t, noise_pred, noise.to(x.device, torch.float32), clip_denoised)
 
     # -------------------------------------------------------------- training
     def p_losses(self, x_start, t, cond, img_lr_up, noise: NoiseHook):
@@ -245,24 +260,39 @@ class GaussianDiffusion(nn.Module):
         tb = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
         return self.denoise_fn(None, tb, None, mode="decode", enc_feats=enc).float()
 
+    def _ancestral_step(self, x, t: int, cond, img_lr_up, hook: NoiseHook):
+        """One ancestral step at timestep ``t`` for the whole batch: (x_{t-1}, x0)."""
+        eps = self._eps(x, t, cond, img_lr_up)
+        x0 = self.predict_start_from_noise(x, t, eps).clamp(-1.0, 1.0)
+        mean, _, log_var = self.q_posterior(x0, x, t)
+        if t > 0:
+            std = float(np.exp(np.float32(0.5) * np.float32(log_var)))
+            return mean + std * hook(t).to(x.device), x0
+        return mean, x0
+
     def sample_segment(self, x, cond, img_lr_up, ts, hook: NoiseHook):
         """Ancestral steps over ``ts`` (descending timesteps)."""
         for t in ts:
-            eps = self._eps(x, t, cond, img_lr_up)
-            x0 = self.predict_start_from_noise(x, t, eps).clamp(-1.0, 1.0)
-            mean, _, log_var = self.q_posterior(x0, x, t)
-            if t > 0:
-                std = float(np.exp(np.float32(0.5) * np.float32(log_var)))
-                x = mean + std * hook(t).to(x.device)
-            else:
-                x = mean
+            x, _ = self._ancestral_step(x, t, cond, img_lr_up, hook)
         return x
 
-    def sample(self, img_lr, img_lr_up, noise=None, generator=None):
-        """Ancestral sampling over all T steps. Returns (img, rrdb_out)."""
-        x, cond, rrdb_out, hook = self.sample_prepare(img_lr, img_lr_up, noise, generator)
-        x = self.sample_segment(x, cond, img_lr_up, range(self.num_timesteps - 1, -1, -1), hook)
-        return self.res2img(x, img_lr_up), rrdb_out
+    def sample(self, img_lr, img_lr_up, noise=None, generator=None, shape=None, save_intermediate: bool = False):
+        """Ancestral sampling over all T steps. Returns (img, rrdb_out); with
+        ``save_intermediate`` also ``(imgs, x0s)``, each step's image and its
+        clipped x0 prediction as images, stacked over the T steps in the
+        order they run (T - 1 first), (T, B, C, H, W) each (JAX
+        ``:367-397``)."""
+        x, cond, rrdb_out, hook = self.sample_prepare(img_lr, img_lr_up, noise, generator, shape)
+        ts = range(self.num_timesteps - 1, -1, -1)
+        if not save_intermediate:
+            x = self.sample_segment(x, cond, img_lr_up, ts, hook)
+            return self.res2img(x, img_lr_up), rrdb_out
+        imgs, x0s = [], []
+        for t in ts:
+            x, x0 = self._ancestral_step(x, t, cond, img_lr_up, hook)
+            imgs.append(self.res2img(x, img_lr_up))
+            x0s.append(self.res2img(x0, img_lr_up))
+        return self.res2img(x, img_lr_up), rrdb_out, (torch.stack(imgs), torch.stack(x0s))
 
     def ddim_timesteps(self, num_steps: int | None = None):
         """The strided (descending) DDIM timesteps and their successors (-1
@@ -351,16 +381,20 @@ class GaussianDiffusion(nn.Module):
         return self.res2img(x, img_lr_up)
 
     # ------------------------------------------------------- residual regime
-    def res2img(self, img_, img_lr_up):
+    def res2img(self, img_, img_lr_up, clip_input: bool | None = None):
+        """The residual back to an image; ``clip_input`` overrides the
+        model's (JAX ``:559-573``)."""
+        clip_input = self.clip_input if clip_input is None else clip_input
         if self.res:
-            if self.clip_input:
+            if clip_input:
                 img_ = img_.clamp(-1.0, 1.0)
             img_ = img_ / self.res_rescale + img_lr_up
         return img_
 
-    def img2res(self, x, img_lr_up):
+    def img2res(self, x, img_lr_up, clip_input: bool | None = None):
+        clip_input = self.clip_input if clip_input is None else clip_input
         if self.res:
             x = (x - img_lr_up) * self.res_rescale
-            if self.clip_input:
+            if clip_input:
                 x = x.clamp(-1.0, 1.0)
         return x

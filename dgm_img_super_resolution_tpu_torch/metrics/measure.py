@@ -8,7 +8,8 @@
 - ``psnr`` and ``ssim`` with scikit-image semantics on uint8 (data range
   255), on the measure's device;
 - ``lr_psnr``: the SR image downscaled by MATLAB's bicubic
-  (``ops.resize.imresize``, on the host) against the LR input;
+  (``ops.resize.imresize``, on the host: the native library where it
+  built, unless ``use_native`` says otherwise) against the LR input;
 - ``lpips``: the AlexNet LPIPS when weights are given, else ``nan``.
 
 The device defaults to CUDA (``core/device.py``); pass ``device="cpu"`` to
@@ -33,8 +34,10 @@ def _to_uint8_hwc(img) -> np.ndarray:
 
 
 class Measure:
-    def __init__(self, lpips_weights: str | None = None, device: str | torch.device | None = None):
+    def __init__(self, lpips_weights: str | None = None, device: str | torch.device | None = None,
+                 use_native: bool | None = None):
         self.device = resolve_device(device)
+        self.use_native = use_native  # imresize's routing of the lr_psnr downscale
         self._lpips = LPIPS.maybe_create(lpips_weights, self.device)
 
     def measure(self, img_a, img_b, img_lr, sr_scale: int) -> dict[str, float]:
@@ -59,7 +62,7 @@ class Measure:
         return ssim_eval(self._on_device(img_a), self._on_device(img_b), data_range=255.0)
 
     def lr_psnr(self, img_a, img_lr, sr_scale: int) -> float:
-        down = imresize(np.asarray(img_a, np.uint8), scale=1.0 / sr_scale)
+        down = imresize(np.asarray(img_a, np.uint8), scale=1.0 / sr_scale, use_native=self.use_native)
         return self.psnr(down, img_lr)
 
     def lpips(self, img_a, img_b) -> float:

@@ -6,7 +6,10 @@ The 4-channel latent is concatenated with the noise-augmented 3-channel LR
 image (``in_channels`` 7); down and up blocks are GroupNorm + SiLU ResBlocks
 with ``Transformer2D`` cross-attention to the text states; the LR noise level
 is a learned class embedding (``num_class_embeds``) added to the time
-embedding. ``attention_head_dim`` in the published config is the head
+embedding; without ``num_class_embeds`` the class labels go through the
+timestep-style embedding instead (sinusoidal + Linear + SiLU + Linear,
+``class_embedding.linear_1/2``, diffusers ``class_embed_type="timestep"``,
+JAX ``:159-171``). ``attention_head_dim`` in the published config is the head
 COUNT (8). ``mode`` splits the forward at the bottleneck for encoder
 propagation, as the SRDiff UNet: ``"encode"`` returns ``(skips, h)`` after
 the down path; ``"decode"`` takes them as ``enc_feats`` and runs the mid
@@ -151,8 +154,8 @@ class UNet2DCondition(nn.Module):
         self.conv_in = nn.Conv2d(cfg["in_channels"], chs[0], 3, padding=1)
         self.time_embedding = TimestepMLP(chs[0], tdim)
         n_class = cfg.get("num_class_embeds")
-        # the published model's only class conditioning: a learned table
-        self.class_embedding = nn.Embedding(n_class, tdim) if n_class else None
+        # a learned table (the published model), else the timestep-style MLP
+        self.class_embedding = nn.Embedding(n_class, tdim) if n_class else TimestepMLP(chs[0], tdim)
         cin, blocks = chs[0], []
         for i, ch in enumerate(chs):
             blocks.append(DownBlock(cin, ch, tdim, lpb, heads, cross, down_attn[i], oc[i],
@@ -182,9 +185,10 @@ class UNet2DCondition(nn.Module):
         dt = self.conv_in.weight.dtype
         temb = self.time_embedding(timestep_embedding(timesteps, self.ch0).to(dt))
         if class_labels is not None:
-            if self.class_embedding is None:
-                raise NotImplementedError("class conditioning other than num_class_embeds is not ported")
-            temb = temb + self.class_embedding(class_labels)
+            if isinstance(self.class_embedding, nn.Embedding):
+                temb = temb + self.class_embedding(class_labels)
+            else:
+                temb = temb + self.class_embedding(timestep_embedding(class_labels, self.ch0).to(dt))
         if mode == "decode":
             skips, h = list(enc_feats[0]), enc_feats[1]
         else:

@@ -15,9 +15,9 @@ applied with two products. Variants (``variant=``):
 
 ``resize`` runs on the tensor's device in float32; ``imresize`` is the
 numpy float64 path of MATLAB's ``imresize`` (uint8 in, rounded uint8 out;
-float in, float64 out). The JAX package also routes ``imresize`` to a
-native C++ library when one is built; the port has no such copy yet, and
-the matrix path gives the same numbers.
+float in, float64 out). As the JAX package's, ``imresize`` routes the
+bicubic to the port's native C++ library (``native/``) where it builds,
+and keeps the matrix path as the reference and the fallback.
 """
 
 from __future__ import annotations
@@ -150,10 +150,15 @@ def resize(x: torch.Tensor, out_hw: tuple[int, int], variant: str = "matlab",
 
 
 def imresize(img: np.ndarray, scale: float | None = None, method: str = "bicubic",
-             sizes: tuple[int, int] | None = None) -> np.ndarray:
+             sizes: tuple[int, int] | None = None, use_native: bool | None = None) -> np.ndarray:
     """MATLAB ``imresize`` on an HW or HWC numpy array: ``ceil(scale * n)``
     output pixels per axis (or ``sizes``); uint8 in gives rounded, clipped
-    uint8 out, float in gives float64 out."""
+    uint8 out, float in gives float64 out.
+
+    ``use_native`` (JAX ``ops/resize.py:182-205``): None runs the bicubic
+    in the native library where it built and the matrix path elsewhere;
+    False forces the matrix path; True raises where the library is
+    missing."""
     if scale is not None:
         out_h = int(math.ceil(scale * img.shape[0]))
         out_w = int(math.ceil(scale * img.shape[1]))
@@ -161,6 +166,13 @@ def imresize(img: np.ndarray, scale: float | None = None, method: str = "bicubic
         out_h, out_w = int(sizes[0]), int(sizes[1])
     else:
         raise ValueError("either scale or sizes must be given")
+    if use_native is not False and method == "bicubic":
+        from dgm_img_super_resolution_tpu_torch import native
+
+        if native.available():
+            return native.matlab_resize(img, (out_h, out_w))
+        if use_native:
+            raise RuntimeError("native imageops requested but unavailable")
     mh = resize_matrix(img.shape[0], out_h, "matlab", method, dtype="float64")
     mw = resize_matrix(img.shape[1], out_w, "matlab", method, dtype="float64")
     x = img.astype(np.float64)

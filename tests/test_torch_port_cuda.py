@@ -695,3 +695,27 @@ def test_over_budget_chunk_zero_is_the_unchunked_batch(kernels):
     whole = pipe.upscale_batch_device(imgs[:2], noise=noise.fold_in(0).hook((2, 3, 128, 128)))
     assert out.shape == (3, 128, 128, 3)
     assert (out[:2] - whole).abs().max().item() <= 3e-2
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.mark.parametrize("kind", ["ae", "vae", "ddpm", "gan", "dcgan", "wgan-gp"])
+def test_educational_task_matches_cpu(card, kind):
+    """The task's float32 loss and gradients on the card against the CPU on
+    the same weights and draws (a GAN's whole round, update by update), at
+    the bounds of ``chip_smoke.phase_edu``; no port kernel launches."""
+    from chip_smoke import _edu_loss_card_vs_cpu, _gan_round_card_vs_cpu
+
+    counters = _counters()
+    _reset_counts(counters)
+    res, failures = {}, []
+    check = _gan_round_card_vs_cpu if kind in ("gan", "dcgan", "wgan-gp") else _edu_loss_card_vs_cpu
+    check(kind, "cuda", res, failures)
+    assert not failures, res
+    assert not any(_read_counts(counters).values())

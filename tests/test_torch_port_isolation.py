@@ -56,6 +56,40 @@ def test_package_imports_with_jax_blocked():
     assert int(out.stdout.strip()) >= 15
 
 
+def test_educational_tasks_and_native_run_with_jax_blocked():
+    """The AE, VAE, DDPM and GAN tasks, MNIST, MultiheadAttention and the
+    native resize run in a process where JAX cannot be imported; the native
+    library builds from the port's own copy of the source."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'flax', 'dgm_img_super_resolution_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import itertools, numpy as np, torch\n"
+        "from dgm_img_super_resolution_tpu_torch import native\n"
+        "from dgm_img_super_resolution_tpu_torch.core.config import Hparams\n"
+        "from dgm_img_super_resolution_tpu_torch.data.mnist import synthetic_mnist, to_model_input\n"
+        "from dgm_img_super_resolution_tpu_torch.models.layers import MultiheadAttention\n"
+        "from dgm_img_super_resolution_tpu_torch.ops.resize import imresize\n"
+        "from dgm_img_super_resolution_tpu_torch.train.tasks.gan import GANTask\n"
+        "from dgm_img_super_resolution_tpu_torch.train.tasks.vae import AETask, DDPMTask, VAETask\n"
+        "hp = Hparams(ddpm_dim=8, ddpm_timesteps=2, crit_repeats=1)\n"
+        "x = to_model_input(synthetic_mnist(4, seed=0)[0], 32)\n"
+        "for task, b in ((AETask(hp, device='cpu'), (x + 1) / 2), (VAETask(hp, device='cpu'), (x + 1) / 2),\n"
+        "                (DDPMTask(hp, device='cpu'), x)):\n"
+        "    tr = task.make_trainer()\n"
+        "    tr.train_step(tr.init_state(0), {'x': b})\n"
+        "g = GANTask(hp, 'wgan-gp', device='cpu')\n"
+        "s, r = g.fit(itertools.repeat(to_model_input(synthetic_mnist(4, seed=1)[0], 28)), 1, 1)\n"
+        "o, w = MultiheadAttention(8, 2)(torch.zeros(1, 3, 8))\n"
+        "assert native.available() and native._SRC.startswith(native._HERE)"
+        " and native._so_path().startswith(native._HERE)\n"
+        "print(imresize(np.zeros((8, 8, 3), np.uint8), scale=0.5).shape, np.isfinite(r['gen_train_loss']).all())\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["(4,", "4,", "3)", "True"]
+
+
 def test_new_serving_paths_run_with_jax_blocked():
     """The over-budget sub-batches and feathered tiles, progress, encoder
     propagation and the UNet's attention and GroupNorm run in a process

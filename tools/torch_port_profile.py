@@ -5,6 +5,7 @@
     python3 tools/torch_port_profile.py [--model srdiff|sd] [--config default|A|B|C] [--batch N] [--steps 20]
                                         [--enc-interval K] [--lr PX] [--top 20] [--out DIR]
     python3 tools/torch_port_profile.py --train [--config ...] [--batch 64] [--hr 160] [--top 20] [--out DIR]
+    python3 tools/torch_port_profile.py --edu ae|vae|ddpm|gan|dcgan|wgan-gp|ddpm_sample [--batch N] [--top 20]
 
 ``--model srdiff`` (default) serves the default full-width SRDiff config
 (seeded random weights, bf16, DDIM ``--steps`` steps with eta 1, batch
@@ -27,7 +28,15 @@ recompute of the regions (every kernel launched under a
 ``RecomputeBackward`` node, ``ops/kernels/_autograd.py``), cuDNN / cuBLAS
 and glue outside those, and the optimizer (clip, Adam, EMA: the
 ``optimizer_update`` range of the trainer).
-Needs one CUDA device and nvcc; run from the root of the repository.
+
+``--edu`` profiles one float32 step of an educational task at the JAX
+defaults' widths instead (``chip_smoke.phase_edu``'s: the AE, VAE or DDPM
+``Trainer.train_step``, a GAN's whole round of ``GANTask.train_step``;
+batch ``--batch``, 128 and the DDPM 64, on the card, after two warm-up
+steps), or ``ddpm_sample``: 20 steps of the DDPM sampler at batch 16. It
+prints the device time by kernel class, the busy share and the ``--top``
+kernels.
+Needs one CUDA device and nvcc (``--edu`` needs no nvcc); run from the root of the repository.
 """
 
 from __future__ import annotations
@@ -69,6 +78,8 @@ def main() -> int:
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--train", action="store_true", help="profile one SRDiff training step")
     ap.add_argument("--hr", type=int, default=160, help="HR crop side of --train")
+    ap.add_argument("--edu", choices=("ae", "vae", "ddpm", "gan", "dcgan", "wgan-gp", "ddpm_sample"), default=None,
+                    help="profile one step of an educational task")
     args = ap.parse_args()
 
     import torch
@@ -78,6 +89,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
+    if args.edu:
+        return profile_edu(args)
     with switches(**CONFIGS[args.config]):
         return profile_train(args) if args.train else profile_serve(args)
 
@@ -168,6 +181,73 @@ def profile_train(args) -> int:
     print(json.dumps({"card": card, "model": "srdiff_train", "config": args.config, "batch": batch_n, "hr": args.hr,
                       "wall_ms": wall_ms, "device_busy_ms": busy_ms, "by_class_ms": by_class,
                       "recompute_by_kernel_class_ms": recompute, "optimizer_by_kernel_class_ms": optim,
+                      "top": [[a.key[:80], a.device_time_total / 1e3, a.count] for a in top[:10]]}))
+    return 0
+
+
+def profile_edu(args) -> int:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import EDU_DDPM_BATCH, EDU_BATCH, _edu_batch, _edu_loss_kw, _edu_task, _gan_draws
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = "ddpm" if args.edu == "ddpm_sample" else args.edu
+    task = _edu_task(kind, "cuda")
+    n = args.batch or (16 if args.edu == "ddpm_sample" else EDU_DDPM_BATCH if kind == "ddpm" else EDU_BATCH)
+    if kind in ("gan", "dcgan", "wgan-gp"):
+        state = task.init_state(0)
+        real = task._real(_edu_batch(kind, n, seed=3))
+        draws = {k: v.cuda() for k, v in _gan_draws(task, n, seed=4).items()}
+
+        def step():
+            task.train_step(state, real, noise=draws)
+    elif args.edu == "ddpm_sample":
+        model = task.init_params(0).cuda()
+        x = torch.randn(n, 1, 32, 32, device="cuda")
+
+        def step():
+            with torch.no_grad():
+                for t in range(999, 979, -1):
+                    model.p_sample_step(x, t, x)
+    else:
+        trainer = task.make_trainer("cuda")
+        state = trainer.init_state(0)
+        b = {"x": torch.from_numpy(_edu_batch(kind, n, seed=3)["x"]).cuda()}
+        kw = _edu_loss_kw(kind, n, "cuda", seed=5)
+
+        def step():
+            trainer.train_step(state, b, None, **kw)
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA
+               and a.key not in ("loss_and_grad", "optimizer_update") and not getattr(a, "is_user_annotation", False)]
+    busy_ms = sum(a.device_time_total for a in kernels) / 1e3
+    launches = sum(a.count for a in kernels)
+    by_class: dict[str, float] = {}
+    for a in kernels:
+        c = kernel_class(a.key)
+        by_class[c] = by_class.get(c, 0.0) + a.device_time_total / 1e3
+    card = torch.cuda.get_device_name(0)
+    what = "20 sampler steps" if args.edu == "ddpm_sample" else "one step" if kind in ("ae", "vae", "ddpm") \
+        else "one round"
+    print(f"{card}: {args.edu} {what}, batch {n}, float32: wall {wall_ms:.1f} ms (profiled), device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), {launches} kernel launches")
+    for c, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"  {c:40s} {ms:9.2f} ms  {100 * ms / max(busy_ms, 1e-9):5.1f}% of device time")
+    top = sorted(kernels, key=lambda a: -a.device_time_total)[:args.top]
+    for a in top:
+        print(f"  {a.device_time_total / 1e3:9.3f} ms  x{a.count:<5d} {a.key[:110]}")
+    print(json.dumps({"card": card, "model": f"edu_{args.edu}", "batch": n, "wall_ms": wall_ms,
+                      "device_busy_ms": busy_ms, "launches": launches, "by_class_ms": by_class,
                       "top": [[a.key[:80], a.device_time_total / 1e3, a.count] for a in top[:10]]}))
     return 0
 
