@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (SRDiff x4 and SD x4 serving, SRDiff and educational training) on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU: SRDiff x4 and SD x4 serving, training, data parallelism.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -152,6 +152,23 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    on the card's host, ``imresize`` takes it by default and equals the
    matrix path (uint8 exactly, float64 to 1e-12), and ``Measure.measure``
    at 512x512 is timed with the matrix path and with the library in turns.
+
+16. Data parallelism (``phase_dp``, ``parallel/mesh.py``): two ranks share
+   the card over gloo (NCCL refuses two ranks on one device), spawned with
+   ``torch.multiprocessing`` in the environment ``torchrun`` sets. The
+   full-width ddim20 serve of a batch of 8 (4 a rank), bf16 and float32
+   with TF32 off, gathered on both ranks and held against the world-1 serve
+   of the same weights and seed (rank 0 alone); each rank's launches of
+   rows 1-3, 20 a serve; bf16 img/s and the batch-1 p50 (replicated) at
+   both worlds in turns. SRDiff training at full width, bf16, global batch
+   64 of 160^2: 3 steps from one state against world 1 (loss, gradient
+   norm, parameters in units of the learning rates applied), both ranks
+   equal, the launches, rank 0's one checkpoint resumed by both ranks,
+   ``reduce_metrics``, the step's and the gradient all-reduce's ms. Then
+   NCCL at world = the card count (the serve through the mesh code; with 2
+   or more cards the training too, at world min(count, 4)), and
+   ``dgmsr-torch train`` under ``torchrun --standalone`` for 4 updates
+   and one checkpoint.
 
 Any failure exits non-zero. The line before the last is the kernel table
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -1192,20 +1209,22 @@ def _serve(pipe, imgs, counters):
     return out, time.perf_counter() - t0, _read_counts(counters)
 
 
-def _uint8_check(label, a, b, failures) -> dict:
+def _uint8_check(label, a, b, failures, max_bound=None) -> dict:
     """The uint8 differences of two serves: mean and 99.9th percentile
-    bounded (``UINT8_*``), the max reported."""
+    bounded (``UINT8_*``), the max reported, and bounded by ``max_bound``
+    where one is given."""
     import torch
 
     d = (a.int() - b.int()).abs()
     hist = torch.bincount(d.flatten().long(), minlength=256).cumsum(0).cpu()
     p999 = int((hist < 0.999 * d.numel()).sum())
     mean, top = d.float().mean().item(), int(d.max().item())
-    ok = mean <= UINT8_MEAN_MAX and p999 <= UINT8_P999_MAX
+    ok = mean <= UINT8_MEAN_MAX and p999 <= UINT8_P999_MAX and (max_bound is None or top <= max_bound)
     print(f"{label}, uint8 output: mean |diff| {mean:.4f} (bound {UINT8_MEAN_MAX}), 99.9th percentile {p999} "
-          f"(bound {UINT8_P999_MAX}), max {top} {'ok' if ok else 'FAIL'}", flush=True)
+          f"(bound {UINT8_P999_MAX}), max {top}" + (f" (bound {max_bound})" if max_bound is not None else "")
+          + f" {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        failures.append(f"{label}: uint8 mean {mean:.4f}, p99.9 {p999}")
+        failures.append(f"{label}: uint8 mean {mean:.4f}, p99.9 {p999}, max {top}")
     return {"mean": mean, "p999": p999, "max": top}
 
 
@@ -2774,6 +2793,449 @@ def phase_train(rows, card):
 
 
 # --------------------------------------------------------------------------
+# Data parallelism (phase_dp): parallel/mesh.py under the SRDiff serve and
+# the trainer, one process a rank with the environment torchrun sets.
+# Two ranks share the one card over gloo (NCCL refuses two ranks on one
+# device), spawned with torch.multiprocessing; then NCCL at world = the
+# card count, and dgmsr-torch train under torchrun.
+DP_GLOO_WORLD = 2
+DP_BATCH, DP_ROUNDS, DP_B1_SERVES = 8, 3, 5
+DP_TRAIN_STEPS = 3
+DP_BF16_TOL = 3e-2  # max |world W - world 1 serving each rank's rows in a call of its own| in bf16, same draws
+# uint8 max of world W against world 1 at batch DP_BATCH in bf16, where cuDNN
+# rounds a batch of DP_BATCH / W otherwise than one of DP_BATCH: at most the
+# differences between two bf16 routes of one serve in phase 3 (34-63 levels,
+# NVIDIA H100 80GB HBM3, 700 W)
+DP_UINT8_MAX = 64
+DP_F32_TOL = 1e-3   # max |world W - world 1| of the float32 serve (TF32 off), under E2E_TOL
+# world W against world 1 on the same card, bf16 training: the loss and the
+# gradient norm of the global batch, and the parameters after each step in
+# units of the learning rates applied so far (lr_sum, as
+# tests/test_torch_port_train_step.py): DP_PARAM_ALL anywhere (a gradient
+# element whose sign flips moves Adam by up to 2 lr), DP_PARAM_MEAN on
+# average, DP_PARAM_STEADY where |mu| is at least DP_STEADY_MU of its
+# tensor's largest.
+DP_LOSS_REL, DP_GNORM_REL = 1e-4, 2e-3
+# The bf16 gradients of a batch of 32 and of 64 lie percent-level apart
+# (cuDNN rounds by shape, as two bf16 routes do: 1.2% of the largest,
+# tools/torch_port_train_cpu.py), so where |mu| is half its tensor's
+# largest an update moves by under 1% of lr; where it is small, signs flip
+# (NVIDIA H100 80GB HBM3, 700 W: 0.13% of the elements moved by more than
+# lr in 3 steps, the mean 2.9e-3 lr_sum, the half-max elements 1.8e-3).
+DP_PARAM_ALL, DP_PARAM_MEAN, DP_PARAM_STEADY, DP_STEADY_MU = 2.0, 1e-2, 1e-2, 0.5
+DP_TIMEOUT_S = 600  # the whole spawn; a collective that waits 120 s fails before
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_serve(rank, world, mesh, counters, res, dtypes, timed):
+    """The full-width ddim20 serve of a batch of DP_BATCH at world W against
+    the same weights and seed at world 1 (rank 0 alone, a one-rank mesh),
+    in each of ``dtypes``; the launches of each rank's serve; in bf16 the
+    same serve against world 1 serving each rank's rows in a call of its
+    own, fed those rows of the same draws; with ``timed``, bf16 img/s and
+    the batch-1 p50 at both worlds, in turns."""
+    import numpy as np
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.inference import SRDiffPipeline
+    from dgm_img_super_resolution_tpu_torch.parallel.mesh import Mesh, barrier
+
+    imgs = np.random.default_rng(0).integers(0, 256, (DP_BATCH, SERVE_LR, SERVE_LR, 3), dtype=np.uint8)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)  # noqa: E731
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    for dtype in dtypes:
+        if dtype == "float32":
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        hp = Hparams(sampler="ddim", sample_timesteps=20, ddim_eta=1.0, compute_dtype=dtype)
+        pipe = SRDiffPipeline(hp)
+        one = SRDiffPipeline(hp, params=pipe.model.state_dict(), mesh=Mesh({"dp": 1}, 0))
+        if dtype == "bfloat16":
+            pipe.upscale_batch_device(imgs, generator=gen())  # warm-up
+        out, dt, launches = _timed_serve(pipe, imgs, counters, generator=gen())
+        want = SERVE_LAUNCHES["default"] if dtype == "bfloat16" else _times(forward_launches("default"), 20)
+        r = {"launches": launches, "launches_ok": launches == want, "want": want, "s": dt,
+             "shape": tuple(out.shape), "finite": bool(torch.isfinite(out).all())}
+        if rank == 0:
+            ref = one.upscale_batch_device(imgs, generator=gen())
+            r["max_abs_vs_world1"] = float((out - ref).abs().max())
+            if dtype == "bfloat16":
+                r["uint8"] = tuple(torch.round(v * 255).to(torch.uint8).cpu() for v in (out, ref))
+                # world 1 in calls of DP_BATCH / W, each fed its rows of the draws that world W made
+                # from the same seed for the whole batch: the per-call batch is a rank's
+                per, shape = DP_BATCH // world, (DP_BATCH, 3, 4 * SERVE_LR, 4 * SERVE_LR)
+
+                def rows_of(lo, g):
+                    return lambda t: torch.randn(shape, generator=g, device="cuda")[lo:lo + per]
+
+                split = torch.cat([one.upscale_batch_device(imgs[lo:lo + per], noise=rows_of(lo, gen()))
+                                   for lo in range(0, DP_BATCH, per)])
+                r["split_max_abs"] = float((out - split).abs().max())
+                del split
+        if timed and dtype == "bfloat16":
+            w1, w2 = [], []
+            for _ in range(DP_ROUNDS):  # world 1 then world W, in turns
+                barrier()
+                if rank == 0:
+                    w1.append(_timed_serve(one, imgs, counters, generator=gen())[1])
+                barrier()
+                w2.append(_timed_serve(pipe, imgs, counters, generator=gen())[1])
+            b1, b2 = [], []
+            for _ in range(DP_B1_SERVES):
+                barrier()
+                if rank == 0:
+                    b1.append(_timed_serve(one, imgs[:1], counters, generator=gen())[1])
+                barrier()
+                b2.append(_timed_serve(pipe, imgs[:1], counters, generator=gen())[1])
+            r.update(world1_s=w1, worldW_s=w2, b1_world1_s=b1, b1_worldW_s=b2)
+        res[f"serve_{dtype}"] = r
+        del pipe, one
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _dp_all_reduce(grads, mesh) -> dict:
+    """The trainer's gradient all-reduce alone over ``grads``: ms of 3 after
+    one warm-up, and the MiB."""
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.parallel.mesh import all_reduce_mean
+
+    ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_mean(grads, mesh)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return {"all_reduce_ms": ms[1:], "grad_mib": sum(t.numel() for t in grads) * 4 / 2**20}
+
+
+def _dp_params(model):
+    return {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+
+
+def _dp_train(rank, world, mesh, counters, work, res):
+    """SRDiffTask at full width, bf16, global batch TRAIN_BATCH of
+    TRAIN_HR^2: DP_TRAIN_STEPS steps at world W against the same steps at
+    world 1 (rank 0 alone) from one state, generator and batches; the
+    launches of rows 1-3 (one a forward a rank); both ranks' parameters
+    equal; rank 0's checkpoint resumed on every rank; ``reduce_metrics``;
+    the step's ms at both worlds and the gradient all-reduce's ms."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dgm_img_super_resolution_tpu_torch.ckpt.ckpt_io import get_all_ckpts
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.parallel.mesh import Mesh, barrier
+    from dgm_img_super_resolution_tpu_torch.train.tasks.srdiff import SRDiffTask
+    from dgm_img_super_resolution_tpu_torch.utils.misc import reduce_metrics
+
+    hp = Hparams(**dict(TRAIN_HP, work_dir=str(work)))
+    batches = [_train_batch(TRAIN_BATCH, TRAIN_HR, 60 + i) for i in range(DP_TRAIN_STEPS)]
+    gen = lambda: torch.Generator(device="cuda").manual_seed(7)  # noqa: E731
+
+    def steps(trainer, timed=0):
+        state, g, out = trainer.init_state(), gen(), []
+        for b in batches:
+            state, m = trainer.train_step(state, b, g)
+            out.append(({k: float(v) for k, v in m.items()}, _dp_params(state.model)))
+        ms = []
+        for _ in range(timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(state, batches[0], g)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return state, out, ms
+
+    if rank == 0:
+        _, ref, ms1 = steps(SRDiffTask(hp).make_trainer(mesh=Mesh({"dp": 1}, 0)), timed=3)
+    barrier()
+    trainer = SRDiffTask(hp).make_trainer()
+    torch.cuda.synchronize()
+    _reset_counts(counters)
+    state, got, _ = steps(trainer)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _read_counts(counters).items() if v}
+    want = _times(train_step_launches("default"), DP_TRAIN_STEPS)
+    r = {"launches": launches, "launches_ok": launches == want, "want": want}
+    flat = torch.cat([p.flatten() for p in got[-1][1].values()])
+    other = flat.clone()
+    dist.broadcast(other, 0)
+    r["ranks_equal"] = bool(torch.equal(flat, other))
+    if rank == 0:
+        adam, named = state.optimizer.adam.state, dict(state.model.named_parameters())
+        trained = [n for n in ref[0][1] if named[n] in adam]  # the fixed RRDB has no gradient
+        errs = []
+        for i, ((m2, p2), (m1, p1)) in enumerate(zip(got, ref)):
+            s = sum(hp["lr"] * 0.5 ** (u // hp["decay_steps"]) for u in range(i + 1))
+            d = torch.cat([(p2[n] - p1[n]).abs().flatten() for n in trained])
+            fixed = max(float((p2[n] - p1[n]).abs().max()) for n in p1 if n not in trained)
+            e = {"loss_rel": abs(m2["loss"] - m1["loss"]) / abs(m1["loss"]),
+                 "grad_norm_rel": abs(m2["grad_norm"] - m1["grad_norm"]) / abs(m1["grad_norm"]),
+                 "param_max_lr": float(d.max()) / s, "param_mean_lr": float(d.mean()) / s,
+                 "flipped_share": float((d > hp["lr"]).float().mean()), "fixed_max": fixed,
+                 "loss": m2["loss"], "loss_world1": m1["loss"]}
+            if i == len(got) - 1:  # where Adam's first moment is large, the gradient's sign is settled
+                for frac in (0.05, DP_STEADY_MU):
+                    steady = 0.0
+                    for n in trained:
+                        m = adam[named[n]]["exp_avg"].abs()
+                        mask = m >= frac * m.max()
+                        steady = max(steady, float((p2[n] - p1[n]).abs()[mask].max()))
+                    e[f"steady{frac}_lr"] = steady / s
+            errs.append(e)
+        r["errs"] = errs
+        r["world1_step_ms"] = ms1
+    # the step's ms at world W, and the all-reduce of the gradients alone
+    ms = []
+    g = gen()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(state, batches[0], g)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    r["step_ms"] = ms
+    r.update(_dp_all_reduce([torch.zeros_like(p) for p in state.optimizer.adam.state], mesh))
+    # rank 0's one checkpoint, resumed by every rank; the others from a work dir of their own that
+    # holds none (a disk local to each host), through rank 0's broadcast
+    trainer.save(state, state.step)
+    kept = [Path(p).name for p in get_all_ckpts(str(work))]
+    fresh = SRDiffTask(hp).make_trainer()
+    if rank:
+        fresh.work_dir = str(work.parent / f"train_rank{rank}_local")
+    ckpt, step = fresh.load_latest()
+    fs = fresh.init_state()
+    fresh.restore(fs, ckpt)
+    same = (step == state.step == fs.step and fs.optimizer.updates == state.optimizer.updates
+            and all(torch.equal(v, state.model.state_dict()[k]) for k, v in fs.model.state_dict().items())
+            and all(torch.equal(a["exp_avg"], b["exp_avg"]) and torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
+                    for a, b in zip(fs.optimizer.adam.state.values(), state.optimizer.adam.state.values())))
+    r.update(checkpoints=kept, saved_step=state.step, resumed_equal=same)
+    red = reduce_metrics({"rank": float(rank), "t": torch.tensor(float(rank), device="cuda")}, mesh=mesh)
+    r["reduce_metrics"] = [red["rank"], float(red["t"])]
+    res["train"] = r
+    del state, fs, trainer, fresh
+    torch.cuda.empty_cache()
+
+
+def _dp_rank(rank, world, backend, port, out_dir, train, dtypes, timed):
+    """One rank: torchrun's environment, ``init_distributed``, the serve in
+    ``dtypes`` (``timed``: in turns with world 1) and, with ``train``, the
+    trainer; its results to ``out_dir/rank<R>.pt``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    import torch
+    import torch.distributed as dist
+
+    from dgm_img_super_resolution_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    if not init_distributed(backend=backend, timeout_s=120):
+        raise RuntimeError("init_distributed did not join the group")
+    try:
+        mesh = make_mesh()
+        res = {"rank": rank, "backend": dist.get_backend(), "mesh": mesh.shape,
+               "device": f"cuda:{torch.cuda.current_device()}"}
+        counters = _counters()
+        t0 = time.perf_counter()
+        _dp_serve(rank, world, mesh, counters, res, dtypes, timed)
+        res["serve_part_s"] = time.perf_counter() - t0
+        if train:
+            t0 = time.perf_counter()
+            _dp_train(rank, world, mesh, counters, Path(out_dir) / "train", res)
+            res["train_part_s"] = time.perf_counter() - t0
+        else:  # the all-reduce of the full-width UNet's gradients, alone
+            from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+            from dgm_img_super_resolution_tpu_torch.models.factory import build_srdiff
+
+            unet = build_srdiff(Hparams()).denoise_fn
+            res["all_reduce"] = _dp_all_reduce([torch.zeros_like(p, device="cuda") for p in unet.parameters()], mesh)
+        torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_spawn(world, backend, tmp, *args) -> list[dict]:
+    """``world`` ranks of ``_dp_rank``, their results by rank. A rank that
+    raises, or a spawn that outlasts DP_TIMEOUT_S, raises here."""
+    import torch
+    import torch.multiprocessing as mp
+
+    out = tmp / f"{backend}{world}"
+    out.mkdir()
+    ctx = mp.start_processes(_dp_rank, args=(world, backend, _free_port(), str(out), *args), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.perf_counter() + DP_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"{backend} world {world}: ranks still running after {DP_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def _dp_report(label, ranks, card, failures, rows):
+    """Check and print one spawn's results."""
+    world = len(ranks)
+    r0 = ranks[0]
+    print(f"{label}: ranks {[r['rank'] for r in ranks]} on {[r['device'] for r in ranks]}, backend "
+          f"{r0['backend']}, mesh {r0['mesh']}; rank 0's serve part {r0['serve_part_s']:.1f} s, training part "
+          f"{r0.get('train_part_s', 0.0):.1f} s", flush=True)
+    for key in sorted(k for k in r0 if k.startswith("serve_") and isinstance(r0[k], dict)):
+        dtype, s = key[len("serve_"):], r0[key]
+        launch_ok = all(r[key]["launches_ok"] for r in ranks)
+        ok = launch_ok and all(r[key]["finite"] for r in ranks) and s["shape"] == (DP_BATCH, 4 * SERVE_LR,
+                                                                                   4 * SERVE_LR, 3)
+        if dtype == "float32":
+            ok = ok and s["max_abs_vs_world1"] <= DP_F32_TOL
+        else:
+            ok = ok and s["split_max_abs"] <= DP_BF16_TOL
+        print(f"{label}: serve ddim20 {dtype} B={DP_BATCH} {SERVE_LR}->{4 * SERVE_LR} ({DP_BATCH // world} a rank) "
+              f"{s['s']:.3f} s, vs world 1 (same weights and seed) max_abs_err {s['max_abs_vs_world1']:.3e}"
+              + (f" (tol {DP_F32_TOL})" if dtype == "float32" else
+                 f"; vs world 1 serving each rank's rows in a call of its own, the same draws: max_abs_err "
+                 f"{s['split_max_abs']:.3e} (tol {DP_BF16_TOL})")
+              + f"; launches a rank {[r[key]['launches'] for r in ranks]} (expected {s['want']}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"{label} serve {dtype}: err {s['max_abs_vs_world1']}, "
+                            f"split err {s.get('split_max_abs')}, launches ok {launch_ok}")
+        if dtype == "bfloat16":  # bf16 rounds elsewhere at batch DP_BATCH / world: the phase-3 bounds
+            s["uint8_vs_world1"] = _uint8_check(f"{label}: bf16 world {world} vs world 1", *s.pop("uint8"),
+                                                failures, max_bound=DP_UINT8_MAX)
+        for r in ranks:
+            _note_launches(rows, f"{label}_serve_{dtype}_rank{r['rank']}", r[key]["launches"])
+    s = r0["serve_bfloat16"]
+    if "world1_s" in s:
+        w1, ww = median(s["world1_s"]), median(s["worldW_s"])
+        print(f"{card}: {label} bf16 ddim20 B={DP_BATCH} in turns ({DP_ROUNDS} rounds): world 1 {DP_BATCH / w1:.2f} "
+              f"img/s ({w1:.3f} s), world {world} {DP_BATCH / ww:.2f} img/s ({ww:.3f} s; x{w1 / ww:.2f}); batch-1 "
+              f"p50 world 1 {median(s['b1_world1_s']):.3f} s, world {world} (replicated) "
+              f"{median(s['b1_worldW_s']):.3f} s", flush=True)
+    if "train" not in r0:
+        red = r0["all_reduce"]
+        print(f"{card}: {label} the gradient all-reduce alone ({red['grad_mib']:.1f} MiB float32) "
+              f"{median(red['all_reduce_ms']):.3f} ms" + (" (no collective in a world of 1)" if world == 1 else ""),
+              flush=True)
+        return
+    t = r0["train"]
+    launch_ok = all(r["train"]["launches_ok"] for r in ranks)
+    worst = {k: max(e[k] for e in t["errs"] if k in e)
+             for k in ("loss_rel", "grad_norm_rel", "param_max_lr", "param_mean_lr", "flipped_share",
+                       "fixed_max", f"steady{DP_STEADY_MU}_lr", "steady0.05_lr")}
+    ok = (worst["loss_rel"] <= DP_LOSS_REL and worst["grad_norm_rel"] <= DP_GNORM_REL
+          and worst["param_max_lr"] <= DP_PARAM_ALL and worst["param_mean_lr"] <= DP_PARAM_MEAN
+          and worst[f"steady{DP_STEADY_MU}_lr"] <= DP_PARAM_STEADY and worst["fixed_max"] == 0
+          and launch_ok and all(r["train"]["ranks_equal"] for r in ranks))
+    print(f"{label}: train bf16 B={TRAIN_BATCH} {TRAIN_HR}^2 ({TRAIN_BATCH // world} a rank), {DP_TRAIN_STEPS} steps "
+          f"vs world 1 from one state: loss rel {worst['loss_rel']:.2e} (tol {DP_LOSS_REL}), grad_norm rel "
+          f"{worst['grad_norm_rel']:.2e} (tol {DP_GNORM_REL}); parameters in lr_sum: max {worst['param_max_lr']:.3e} "
+          f"(tol {DP_PARAM_ALL}), mean {worst['param_mean_lr']:.3e} (tol {DP_PARAM_MEAN}), where |mu| >= "
+          f"{DP_STEADY_MU} of its tensor's max {worst[f'steady{DP_STEADY_MU}_lr']:.3e} (tol {DP_PARAM_STEADY}; at "
+          f"0.05: {worst['steady0.05_lr']:.3e}), moved by more than lr {100 * worst['flipped_share']:.3f}% of "
+          f"elements, fixed RRDB {worst['fixed_max']:.1e}; ranks equal {[r['train']['ranks_equal'] for r in ranks]}; "
+          f"launches a rank {[r['train']['launches'] for r in ranks]} (expected {t['want']}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"{label} train: {worst}, launches ok {launch_ok}")
+    for r in ranks:
+        _note_launches(rows, f"{label}_train_{DP_TRAIN_STEPS}_steps_rank{r['rank']}", r["train"]["launches"])
+    want_mean = sum(range(world)) / world
+    ok = (all(r["train"]["checkpoints"] == [f"model_ckpt_steps_{r['train']['saved_step']}.ckpt"] for r in ranks)
+          and all(r["train"]["resumed_equal"] for r in ranks)
+          and all(r["train"]["reduce_metrics"] == [want_mean, want_mean] for r in ranks))
+    print(f"{label}: rank 0's checkpoint {t['checkpoints']}, resumed equal on every rank "
+          f"{[r['train']['resumed_equal'] for r in ranks]}; reduce_metrics "
+          f"{[r['train']['reduce_metrics'] for r in ranks]} (want {want_mean}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"{label} checkpoint / reduce_metrics")
+    print(f"{card}: {label} train step B={TRAIN_BATCH} bf16: world 1 {median(t['world1_step_ms']):.1f} ms, world "
+          f"{world} {median(t['step_ms']):.1f} ms; the gradient all-reduce alone ({t['grad_mib']:.1f} MiB float32) "
+          f"{median(t['all_reduce_ms']):.2f} ms", flush=True)
+
+
+def _dp_cli(tmp, count, card, failures):
+    """``dgmsr-torch train`` under ``torchrun --standalone`` at
+    ``--nproc_per_node`` = the card count, on PNGs written from a seed: a
+    few updates and one checkpoint."""
+    png = tmp / "png"
+    png.mkdir()
+    write_train_pngs(png, seed=3, n=TRAIN_BATCH)
+    work = tmp / "cli_train"
+    updates = 4
+    hp = (f"work_dir={work},batch_size={TRAIN_BATCH},patch_size={TRAIN_HR},compute_dtype=bfloat16,"
+          "data_augmentation=true,num_workers=8,val_check_interval=0,tb_log_interval=2")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={count}",
+           "-m", "dgm_img_super_resolution_tpu_torch.apps.cli", "train", str(png), "--max_updates", str(updates),
+           "-hp", hp]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=DP_TIMEOUT_S, cwd=Path(__file__).parent)
+    dt = time.perf_counter() - t0
+    files = sorted(p.name for p in work.iterdir()) if work.exists() else []
+    log_lines = (work / "metrics.jsonl").read_text().splitlines() if (work / "metrics.jsonl").exists() else []
+    ok = (out.returncode == 0 and f"model_ckpt_steps_{updates}.ckpt" in files
+          and len(log_lines) == updates // 2)
+    print(f"{card}: torchrun --standalone --nproc_per_node={count} dgmsr-torch train, {updates} updates "
+          f"B={TRAIN_BATCH} {TRAIN_HR}^2 bf16: rc {out.returncode}, {dt:.1f} s, files {files}, "
+          f"{len(log_lines)} log lines "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        print(out.stdout[-3000:], out.stderr[-3000:], sep="\n", flush=True)
+        failures.append(f"torchrun dgmsr-torch train: rc {out.returncode}, files {files}")
+    return {"rc": out.returncode, "s": dt, "files": files, "log_lines": len(log_lines)}
+
+
+def phase_dp(rows, card):
+    """Data parallelism: two ranks sharing the card over gloo (serve in
+    bf16 and float32, training, checkpoint, ``reduce_metrics``, times in
+    turns); NCCL at world = the card count (the serve through the mesh code;
+    at 2 or more cards the training too, at world min(count, 4)); and
+    ``dgmsr-torch train`` under torchrun."""
+    import tempfile
+
+    import torch
+
+    res, failures = {}, []
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        both = ("bfloat16", "float32")
+        # (backend, world, train, serve dtypes, timed in turns); NCCL at world 1 serves through the mesh code
+        runs = [("gloo", DP_GLOO_WORLD, True, both, True),
+                ("nccl", min(count, 4), count >= 2, both if count >= 2 else both[:1], count >= 2)]
+        for backend, world, *args in runs:
+            label = f"dp {backend} world {world}" + (" on one card" if world > count else "")
+            try:
+                ranks = _dp_spawn(world, backend, tmp, *args)
+            except Exception as e:  # a rank's error, printed; the phase fails
+                print(f"{label}: FAIL {type(e).__name__}: {e}", flush=True)
+                failures.append(f"{label}: {type(e).__name__}")
+                continue
+            _dp_report(label, ranks, card, failures, rows)
+            res[f"{backend}{world}"] = ranks
+        res["cli"] = _dp_cli(tmp, count, card, failures)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"dp phase {res['phase_s']:.1f} s", flush=True)
+    return res, failures
+
+
+# --------------------------------------------------------------------------
 # The educational models (phase_edu), the native resize (phase_native) and
 # the SRDiff sampler API / SD class embedding repairs (phase_sampler_api).
 # None of these paths runs a port kernel, as in the JAX package: the
@@ -3333,10 +3795,11 @@ def main() -> int:
     sd_local, f10 = phase_sd_local_checkpoint(rows)
     sd_e2e, f8 = phase_sd_card_vs_cpu()
     train, f11 = phase_train(rows, card)
+    dp, f15 = phase_dp(rows, card)
     sampler_api, f12 = phase_sampler_api()
     edu, f13 = phase_edu(rows, card)
     native, f14 = phase_native(card)
-    failures += f3 + f3c + f3b + f4 + f4b + f5 + f6 + f7 + f7b + f9 + f10 + f8 + f11 + f12 + f13 + f14
+    failures += f3 + f3c + f3b + f4 + f4b + f5 + f6 + f7 + f7b + f9 + f10 + f8 + f11 + f15 + f12 + f13 + f14
     missing = [row["name"] for row in rows if row["launches"] is None]
     if missing:
         failures.append(f"no launch count for {missing}")
@@ -3345,7 +3808,7 @@ def main() -> int:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "kernels": rows, "pipeline": pipe, "serving_paths": paths, "bf16_forward": fwd16,
              "card_vs_cpu": e2e, "backward": bwd, "sd": sd, "sd_options": sd_opts, "checkpoint_cli": ckpt_cli,
-             "sd_local_checkpoint": sd_local, "sd_card_vs_cpu": sd_e2e, "train": train,
+             "sd_local_checkpoint": sd_local, "sd_card_vs_cpu": sd_e2e, "train": train, "dp": dp,
              "sampler_api": sampler_api, "edu": edu, "native": native, "failures": failures},
             indent=1))
     if failures:

@@ -7,7 +7,11 @@ Every subcommand runs on the CUDA device unless ``--device`` names another
 upstream SRDiff checkpoint; without it the weights are a seeded random init.
 ``train`` trains SRDiff on a directory of DIV2K-style images into
 ``work_dir`` (``--exp_name`` sets it to ``checkpoints/<name>``), resuming
-from its newest checkpoint. The JAX CLI's ``bench`` is not ported yet.
+from its newest checkpoint; under ``torchrun`` it joins the process group
+first and trains data-parallel over its ranks (``parallel/mesh.py``:
+``hp['mesh_shape']`` names the ``dp`` axis, every rank by default), each
+rank on its own card (``--device cpu``: gloo on the CPU), rank 0 printing
+and writing. The JAX CLI's ``bench`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -89,20 +93,31 @@ def cmd_infer(args) -> int:
 
 
 def cmd_train(args) -> int:
+    import torch.distributed as dist
+
     from dgm_img_super_resolution_tpu_torch.data import DataLoader, DIV2KDataset
+    from dgm_img_super_resolution_tpu_torch.parallel.mesh import init_distributed, make_mesh
     from dgm_img_super_resolution_tpu_torch.train.tasks.srdiff import SRDiffTask
 
-    hp = _hparams(args)
-    size = hp.get("patch_size", 160)
-    ds = DIV2KDataset(args.data_dir, scale_factor=hp["sr_scale"], hr_height=size, hr_width=size,
-                      data_augmentation=hp["data_augmentation"])
-    loader = DataLoader(ds, hp["batch_size"], num_workers=hp["num_workers"], endless=True, seed=hp["seed"])
-    trainer = SRDiffTask(hp).make_trainer(device=args.device or None)
-    batches = iter(loader)
+    # a no-op on one process; joins the group under torchrun (gloo for --device cpu)
+    joined = not dist.is_initialized() and init_distributed(backend="gloo" if args.device.startswith("cpu") else None)
     try:
-        trainer.fit(batches, hp["seed"], max_updates=args.max_updates or None)
+        hp = _hparams(args)
+        mesh = make_mesh(hp.get("mesh_shape", ""))
+        size = hp.get("patch_size", 160)
+        ds = DIV2KDataset(args.data_dir, scale_factor=hp["sr_scale"], hr_height=size, hr_width=size,
+                          data_augmentation=hp["data_augmentation"], rank=mesh.rank)
+        loader = DataLoader(ds, hp["batch_size"], num_workers=hp["num_workers"], endless=True, seed=hp["seed"],
+                            mesh=mesh)
+        trainer = SRDiffTask(hp).make_trainer(device=args.device or None, mesh=mesh)
+        batches = iter(loader)
+        try:
+            trainer.fit(batches, hp["seed"], max_updates=args.max_updates or None)
+        finally:
+            batches.close()
     finally:
-        batches.close()
+        if joined:
+            dist.destroy_process_group()
     return 0
 
 

@@ -8,8 +8,10 @@ x1/s resize) and ``lr_up`` (bicubic x s of ``lr``, the ``torch``
 align_corners variant), all computed on the host through the port's
 ``ops/resize.py:resize_matrix``. With ``data_augmentation`` an image larger
 than the HR size gives a random crop, flipped left-right half the time,
-drawn from a numpy generator seeded by ``seed``. The trainer moves batches
-to NCHW (channels_last on the card).
+drawn from a numpy generator seeded by ``seed``, or under data parallelism
+by (``seed``, ``rank``) so that the ranks crop apart (rank 0 draws the
+one-process stream). The trainer moves batches to NCHW (channels_last on
+the card).
 """
 
 from __future__ import annotations
@@ -40,14 +42,14 @@ class DIV2KDataset:
 
     def __init__(self, img_dir_path: str, scale_factor: int = 4, hr_height: int = 256, hr_width: int = 256,
                  only_img: bool = False, data_augmentation: bool = False, seed: int = 0,
-                 file_list: list[str] | None = None):
+                 file_list: list[str] | None = None, rank: int = 0):
         self.img_dir_path = img_dir_path
         self.scale = scale_factor
         self.hr_height = hr_height
         self.hr_width = hr_width
         self.only_img = only_img
         self.data_augmentation = data_augmentation
-        self._rng = np.random.default_rng(seed)
+        self._rng = np.random.default_rng([seed, rank] if rank else seed)
         if file_list is not None:
             self.files = file_list
         else:

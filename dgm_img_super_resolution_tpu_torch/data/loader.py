@@ -8,6 +8,12 @@ the step. Batches are stacked numpy trees; the trainer copies them to the
 card through pinned memory without waiting (``train/trainer.py``). An
 error in ``dataset[i]`` (a file that does not decode) is raised by the
 iterator, where the JAX package's loader would wait for the batch forever.
+
+Given a ``mesh`` (``parallel/mesh.py``), ``batch_size`` is the global
+batch: every rank walks the same epoch permutation and loads only its rows
+of each batch, yielded as a ``Shard`` (the rows and their tree), which the
+trainer takes as it is. Each rank then runs ``num_workers // ranks on the
+host`` threads (at least one), so that the ranks of a host share its cores.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Iterator
 
 import numpy as np
+
+from dgm_img_super_resolution_tpu_torch.parallel.mesh import Mesh, Shard, batch_rows, local_world
 
 
 def _stack(samples: list) -> Any:
@@ -39,12 +47,13 @@ class _Failed:
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0, num_workers: int = 4,
                  prefetch: int = 2, drop_last: bool = True, endless: bool = False,
-                 collate_fn: Callable | None = None):
+                 collate_fn: Callable | None = None, mesh: Mesh | None = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
-        self.num_workers = max(1, num_workers)
+        self.mesh = mesh
+        self.num_workers = max(1, num_workers // (local_world() if mesh is not None else 1))
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.endless = endless
@@ -75,7 +84,12 @@ class DataLoader:
                             if stop.is_set():
                                 return
                             sel = idx[b * self.batch_size: (b + 1) * self.batch_size]
-                            q.put(self.collate_fn(list(pool.map(self.dataset.__getitem__, sel))))
+                            if self.mesh is None:
+                                q.put(self.collate_fn(list(pool.map(self.dataset.__getitem__, sel))))
+                                continue
+                            rows = batch_rows(len(sel), self.mesh)
+                            data = self.collate_fn(list(pool.map(self.dataset.__getitem__, rows.take(sel))))
+                            q.put(Shard(data, rows))
                         if not self.endless:
                             break
                         epoch += 1

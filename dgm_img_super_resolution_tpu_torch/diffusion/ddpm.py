@@ -19,6 +19,7 @@ import torch.nn as nn
 
 from dgm_img_super_resolution_tpu_torch.diffusion.gaussian import as_noise_hook
 from dgm_img_super_resolution_tpu_torch.diffusion.schedule import Schedule
+from dgm_img_super_resolution_tpu_torch.utils.draws import randint, randn
 
 
 class DDPM(nn.Module):
@@ -51,11 +52,10 @@ class DDPM(nn.Module):
         ``t`` (drawn uniformly from [0, T) when None)."""
         b, dev = x_start.shape[0], x_start.device
         if t is None:
-            t = torch.randint(0, self.num_timesteps, (b,), generator=generator,
-                              device=generator.device if generator is not None else dev)
+            t = randint(self.num_timesteps, (b,), generator, dev)
         t = t.to(dev)
         if noise is None:
-            noise = torch.randn(x_start.shape, generator=generator, device=dev, dtype=torch.float32)
+            noise = randn(x_start.shape, generator, dev)
         noise = noise.to(dev, torch.float32)
         pred = self.model(self.q_sample(x_start, t, noise), t).float()
         return ((noise - pred) ** 2).mean()

@@ -34,6 +34,8 @@ the host; a sampler step, whose t is one int for the batch, reads its
 scalars from the host arrays as before. The noise is drawn, or passed as a
 tensor (the q noise; the posterior step's is drawn), a pair ``(eps,
 eps_step)`` or a hook ``noise(None)`` -> eps, ``noise(t)`` -> eps_step.
+The drawn ones come from ``utils/draws.py``: a ``RowDraws`` generator draws
+them for a global batch and keeps this batch's rows of it.
 Under ``fix_rrdb`` the encoder runs without grad (JAX's ``stop_gradient``).
 """
 
@@ -47,6 +49,7 @@ import torch.nn as nn
 
 from dgm_img_super_resolution_tpu_torch.diffusion.schedule import Schedule
 from dgm_img_super_resolution_tpu_torch.metrics.psnr_ssim import ssim as ssim_loss
+from dgm_img_super_resolution_tpu_torch.utils.draws import normal_like, randint
 
 NoiseHook = Callable[[int | None], torch.Tensor]
 
@@ -67,7 +70,7 @@ def _train_noise(noise, x: torch.Tensor, generator: torch.Generator | None) -> N
     ``hook(None)`` the q noise, ``hook(t)`` the posterior step's. Drawn
     noise takes x's memory format (channels_last on the card)."""
     def draw(_t=None):
-        return torch.empty_like(x, dtype=torch.float32).normal_(generator=generator)
+        return normal_like(x, generator)
 
     if noise is None:
         return draw
@@ -228,8 +231,7 @@ class GaussianDiffusion(nn.Module):
         x_t_gt, x_t) images, t)``."""
         b, dev = img_hr.shape[0], img_hr.device
         if t is None:
-            t = torch.randint(0, self.num_timesteps, (b,), generator=generator,
-                              device=generator.device if generator is not None else dev)
+            t = randint(self.num_timesteps, (b,), generator, dev)
         elif not isinstance(t, torch.Tensor):
             t = torch.full((b,), int(t), dtype=torch.long)
         t = t.to(dev)

@@ -26,6 +26,16 @@ by the chunk indices that lead to it, as the JAX package folds them into
 its key; without one, each chunk draws from a generator seeded by a draw
 from its parent's generator.
 
+Data parallelism (``parallel/mesh.py``). Under a process group of W ranks
+(``torchrun``) the pipeline's ``mesh`` (from ``hp['mesh_shape']``) puts
+every rank on ``dp``: the weights are broadcast from rank 0, each sampler
+call serves this rank's rows of its batch and gathers the whole batch on
+every rank, so every rank returns the images of a one-process serve. The
+budget is then one card's: a batch that W divides may hold W times the
+budget, and sub-batches are sized in multiples of W; a batch that W does
+not divide is served whole on every rank (with a warning). Noise is drawn
+or asked of the hook for the whole batch and sliced to the rows.
+
 Weights: a state dict under the reference checkpoint's names, the upstream
 checkpoint file itself (``ckpt_path``, through
 ``ckpt/torch_import.py:import_srdiff_checkpoint``), or a seeded random
@@ -44,6 +54,7 @@ import torch.nn.functional as F
 
 from dgm_img_super_resolution_tpu_torch.core.config import Hparams
 from dgm_img_super_resolution_tpu_torch.core.device import resolve_device
+from dgm_img_super_resolution_tpu_torch.diffusion.gaussian import as_noise_hook
 from dgm_img_super_resolution_tpu_torch.models.factory import build_srdiff, init_srdiff_params
 from dgm_img_super_resolution_tpu_torch.ops.image import (
     extract_patches,
@@ -53,6 +64,14 @@ from dgm_img_super_resolution_tpu_torch.ops.image import (
     uint8_to_pm1,
 )
 from dgm_img_super_resolution_tpu_torch.ops.resize import resize
+from dgm_img_super_resolution_tpu_torch.parallel.mesh import (
+    Mesh,
+    batch_rows,
+    gather_rows,
+    make_mesh,
+    replicate,
+    shard_batch,
+)
 
 logger = logging.getLogger("dgm_img_super_resolution_tpu_torch.inference")
 
@@ -97,14 +116,16 @@ def _scaled(progress_cb: ProgressCb | None, i: int, n: int) -> ProgressCb | None
 class SRDiffPipeline:
     def __init__(self, hp: Hparams | None = None, params: Mapping[str, torch.Tensor] | None = None,
                  device: str | torch.device | None = None, generator: torch.Generator | None = None,
-                 ckpt_path: str | None = None):
+                 ckpt_path: str | None = None, mesh: Mesh | None = None):
         """``params``: a ``state_dict`` of the SRDiff stack under the
         reference checkpoint's names (``denoise_fn.*``, ``rrdb.*``), loaded
         strictly; else the upstream checkpoint at ``ckpt_path``; else a
         random init seeded by ``hp['seed']``. ``generator`` draws the
         sampler noise; by default one on ``device`` seeded by
-        ``hp['seed']``."""
+        ``hp['seed']``. ``mesh``: ``make_mesh(hp['mesh_shape'])`` by
+        default."""
         self.hp = hp or Hparams()
+        self.mesh = mesh if mesh is not None else make_mesh(self.hp.get("mesh_shape", ""))
         self.device = resolve_device(device)
         model = build_srdiff(self.hp)
         if params is None and ckpt_path:
@@ -119,6 +140,7 @@ class SRDiffPipeline:
         if self.device.type == "cuda":
             # conv weights channels_last too, so that cuDNN sees NHWC on both sides
             self.model.to(memory_format=torch.channels_last)
+        replicate(self.model, self.mesh)
         self.generator = generator or torch.Generator(device=self.device).manual_seed(int(self.hp["seed"]))
 
     def _pad(self, h: int, w: int) -> tuple[int, int]:
@@ -170,8 +192,11 @@ class SRDiffPipeline:
                 outs.append(torch.round(sr * 255.0).to(torch.uint8) if as_uint8 else sr)
             return torch.stack(outs)
         per_img, budget = self._padded_hr_pixels(h, w), self._budget()
-        if budget and n > 1 and n * per_img > budget:
-            sub = max(1, budget // per_img)
+        ndev = self.mesh.dp
+        # a batch that shards holds ndev cards' budgets; one that replicates, one card's
+        if budget and n > 1 and n * per_img > budget * (ndev if n % ndev == 0 else 1):
+            # the largest sub-batch within budget that still shards
+            sub = max((budget * ndev // per_img) // ndev * ndev, ndev) if ndev > 1 else max(1, budget // per_img)
             n_chunks = -(-n // sub)
             outs = []
             for ci in range(n_chunks):
@@ -186,11 +211,13 @@ class SRDiffPipeline:
         return self._serve(x, gen, as_uint8, noise, progress_cb, callback_steps)
 
     def _serve(self, x, gen, as_uint8, noise, progress_cb, callback_steps) -> torch.Tensor:
-        """One sampler call over the whole batch."""
+        """One sampler call over the whole batch: this rank's rows of it,
+        then the whole batch gathered."""
         n, h, w = (int(v) for v in x.shape[:3])
         ph, pw = self._pad(h, w)
         scale = self.hp["sr_scale"]
-        x = x.to(self.device)
+        rows = batch_rows(n, self.mesh)
+        x = shard_batch(x, self.mesh).to(self.device)
         x = uint8_to_pm1(x) if x.dtype == torch.uint8 else x.to(torch.float32)
         x = x.permute(0, 3, 1, 2)
         if ph or pw:
@@ -200,6 +227,10 @@ class SRDiffPipeline:
         if isinstance(noise, ChunkNoise):
             noise = noise.hook((n, 3) + hr)
         img_lr_up = resize(x, hr, variant="torch")
+        if rows.split:
+            # the whole batch's noise, drawn or asked of the hook, and this rank's rows of it
+            whole = as_noise_hook(noise, (n,) + tuple(img_lr_up.shape[1:]), self.device, gen)
+            noise = lambda t: rows.take(whole(t))  # noqa: E731
         d = self.model
         ddim = self.hp.get("sampler", "ddpm") == "ddim"
         eta = float(self.hp.get("ddim_eta", 0.0))
@@ -229,7 +260,7 @@ class SRDiffPipeline:
                 progress_cb(done, len(ts))
             img = d.res2img(xt, img_lr_up)
         out = (img * 0.5 + 0.5).clamp(0.0, 1.0)[:, :, : h * scale, : w * scale]
-        out = out.permute(0, 2, 3, 1)
+        out = gather_rows(out.permute(0, 2, 3, 1), rows, self.mesh)
         if as_uint8:
             out = torch.round(out * 255.0).to(torch.uint8)
         return out

@@ -18,6 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dgm_img_super_resolution_tpu_torch.models.layers import same_pad
+from dgm_img_super_resolution_tpu_torch.utils.draws import randn
 
 
 class ConvEncoder(nn.Module):
@@ -99,7 +100,7 @@ class VAE(nn.Module):
     @staticmethod
     def reparameterize(mu, logvar, eps=None, generator: torch.Generator | None = None):
         if eps is None:
-            eps = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
+            eps = randn(mu.shape, generator, mu.device, mu.dtype)
         return mu + torch.exp(0.5 * logvar) * eps.to(mu.device, mu.dtype)
 
     def decode(self, z):

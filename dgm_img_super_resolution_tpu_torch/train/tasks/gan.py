@@ -23,6 +23,10 @@ keyed ``(name, k)``: ``("z", k)`` the generator input of update k,
 ``("eps", k)`` its (N, 1, 1, 1) mix weights, ``("z_gen", 0)`` the
 generator update's input.
 
+The GANs train on one device, as JAX's do: JAX's ``GANTask`` jits its
+round without a mesh (its docstring's dp sharding is not what it runs), and
+this task takes no ``mesh`` either.
+
 Images are NCHW tensors, or NHWC numpy arrays (``data/mnist.py``), which
 the task moves to its device; the simple GAN's generator gives
 (N, H*W*C) rows in JAX's NHWC order, which ``generate`` reshapes to NCHW.

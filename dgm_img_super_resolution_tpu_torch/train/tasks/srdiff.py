@@ -56,8 +56,9 @@ class SRDiffTask:
             apply_weight_norm(self.diffusion.denoise_fn)
         return self.diffusion
 
-    def make_trainer(self, device: str | torch.device | None = None) -> Trainer:
-        return Trainer(self.hp, loss_fn=self.loss_fn, init_params_fn=self.init_params, device=device)
+    def make_trainer(self, device: str | torch.device | None = None, mesh=None) -> Trainer:
+        """The trainer on ``device`` over ``mesh`` (``make_mesh(hp['mesh_shape'])`` by default)."""
+        return Trainer(self.hp, loss_fn=self.loss_fn, init_params_fn=self.init_params, device=device, mesh=mesh)
 
     def make_val_fn(self, val_batches: list, sample_metrics: bool = False):
         """Validation for ``Trainer.fit``: the mean loss over ``valid_steps``

@@ -39,9 +39,11 @@ class _Task:
     def init_params(self, seed: int = 0) -> torch.nn.Module:
         return flax_init_(self.model, torch.Generator().manual_seed(seed))
 
-    def make_trainer(self, device: str | torch.device | None = None) -> Trainer:
+    def make_trainer(self, device: str | torch.device | None = None, mesh=None) -> Trainer:
+        """The trainer on ``device`` (the task's by default) over ``mesh``
+        (``make_mesh(hp['mesh_shape'])`` by default)."""
         return Trainer(self.hp, loss_fn=self.loss_fn, init_params_fn=self.init_params,
-                       device=device if device is not None else self.device)
+                       device=device if device is not None else self.device, mesh=mesh)
 
 
 class AETask(_Task):

@@ -1,4 +1,4 @@
-"""The trainer on one device (counterpart of the JAX package's
+"""The trainer (counterpart of the JAX package's
 ``train/trainer.py``; the loop the reference config's keys describe,
 ``srdiff/config.yaml:1,15,21,33,35,76-79``).
 
@@ -24,8 +24,21 @@ Parameters and Adam's moments stay float32; the model runs its activations
 in ``compute_dtype`` (every layer casts its float32 weights to its input's
 dtype, as flax's ``param_dtype`` float32 / ``dtype`` split). Rows 1-3 of the
 kernel table launch in each forward under grad; their backward recomputes
-their plain versions (``ops/kernels/_autograd.py``). The mesh is not ported:
-the port trains on one device.
+their plain versions (``ops/kernels/_autograd.py``).
+
+Data parallelism (``parallel/mesh.py``): one process a card, under
+``torchrun``. The state is broadcast from rank 0 at ``init_state``;
+``train_step`` takes the global batch, as JAX's, and runs this rank's rows
+of it (a loader given the mesh yields those rows alone, as a ``Shard``),
+drawing through a ``utils/draws.py:RowDraws`` over its generator; after
+each micro-batch's backward one ``all_reduce`` averages the gradients and
+the metrics, so that the clip, Adam, the schedule and the EMA agree on
+every rank with no broadcast. Rank 0 alone writes the checkpoints, the JSON
+log, TensorBoard and the code snapshot, and prints; every rank waits for
+each save. ``fit`` resumes every rank from rank 0's newest checkpoint,
+which rank 0 reads and broadcasts (``load_latest``), so a work dir local to
+each host does not split the ranks. In a world of 1 all of it is the
+identity.
 
 Batches are the loader's NHWC numpy trees; ``batch_to_device`` copies them
 through pinned memory without waiting and hands the model NCHW tensors in
@@ -47,7 +60,20 @@ import torch.nn as nn
 from dgm_img_super_resolution_tpu_torch.ckpt.ckpt_io import load_checkpoint, save_checkpoint
 from dgm_img_super_resolution_tpu_torch.core.config import Hparams
 from dgm_img_super_resolution_tpu_torch.core.device import resolve_device
-from dgm_img_super_resolution_tpu_torch.utils.misc import to_device
+from dgm_img_super_resolution_tpu_torch.parallel.mesh import (
+    Mesh,
+    Shard,
+    all_reduce_mean,
+    barrier,
+    batch_rows,
+    broadcast_object,
+    is_main,
+    make_mesh,
+    replicate,
+    shard_batch,
+)
+from dgm_img_super_resolution_tpu_torch.utils.draws import RowDraws
+from dgm_img_super_resolution_tpu_torch.utils.misc import reduce_metrics, to_device
 from dgm_img_super_resolution_tpu_torch.utils.profiling import trace_annotation
 
 
@@ -62,6 +88,18 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     if not tensors:
         return torch.zeros(())
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+def _rows_of(v, rows):
+    """``rows`` of a tensor over the global batch, of each in a tuple, or of
+    what a noise hook returns."""
+    if isinstance(v, torch.Tensor) and v.ndim >= 1 and v.shape[0] == rows.total:
+        return rows.take(v)
+    if isinstance(v, (tuple, list)):
+        return type(v)(_rows_of(u, rows) for u in v)
+    if callable(v):
+        return lambda *a: _rows_of(v(*a), rows)
+    return v
 
 
 def batch_to_device(batch: dict, device: torch.device) -> dict:
@@ -142,16 +180,19 @@ class TrainState:
 
 
 class Trainer:
-    """Single-optimizer trainer on one device. ``loss_fn(model, batch,
-    generator, **kw) -> (loss, metrics)`` over a batch on the device;
-    ``init_params_fn(seed) -> nn.Module`` builds the initialised float32
-    model on the CPU."""
+    """Single-optimizer trainer. ``loss_fn(model, batch, generator, **kw) ->
+    (loss, metrics)`` over a batch on the device, which draws from
+    ``generator`` through ``utils/draws.py``; ``init_params_fn(seed) ->
+    nn.Module`` builds the initialised float32 model on the CPU. ``mesh``:
+    ``make_mesh(hp['mesh_shape'])`` by default."""
 
     def __init__(self, hp: Hparams, loss_fn: Callable, init_params_fn: Callable[[int], nn.Module],
-                 device: str | torch.device | None = None, work_dir: str | None = None):
+                 device: str | torch.device | None = None, work_dir: str | None = None,
+                 mesh: Mesh | None = None):
         self.hp = hp
         self.loss_fn = loss_fn
         self.init_params_fn = init_params_fn
+        self.mesh = mesh if mesh is not None else make_mesh(hp.get("mesh_shape", ""))
         self.device = resolve_device(device)
         self.work_dir = work_dir or hp["work_dir"]
         self.ema_decay = float(hp.get("ema_decay", 0.0))
@@ -165,18 +206,30 @@ class Trainer:
         model = self.init_params_fn(int(self.hp["seed"]) if seed is None else seed).to(self.device)
         if self.device.type == "cuda":
             model.to(memory_format=torch.channels_last)  # conv weights NHWC, as the activations
+        replicate(model, self.mesh)
         ema = None
         if self.ema_decay > 0:
             ema = {n: p.detach().clone() for n, p in model.named_parameters()}
         return TrainState(model, Optimizer(list(model.parameters()), self.hp), 0, ema)
 
     # ------------------------------------------------------------------ step
-    def train_step(self, state: TrainState, batch: dict, generator: torch.Generator | None = None,
+    def train_step(self, state: TrainState, batch: dict | Shard, generator: torch.Generator | None = None,
                    **loss_kw) -> tuple[TrainState, dict]:
         """One micro-batch: loss and gradients, then the optimizer (which may
         hold the update back) and the EMA. ``batch`` is the loader's NHWC
-        tree; ``loss_kw`` goes to ``loss_fn`` (a test's ``t`` and ``noise``).
-        Metrics stay on the device."""
+        tree of the global batch, of which this rank runs its rows, or a
+        ``Shard`` of those rows alone; ``loss_kw`` goes to ``loss_fn`` (a
+        test's ``t`` and ``noise``: a tensor, a tuple of them or a hook,
+        over the global batch, is sliced to the rows). Metrics are the
+        global batch's, and stay on the device."""
+        if isinstance(batch, Shard):
+            rows, batch = batch.rows, batch.data
+        else:
+            rows = batch_rows(int(next(iter(batch.values())).shape[0]), self.mesh)
+            batch = shard_batch(batch, self.mesh)
+        if rows.split:
+            loss_kw = {k: _rows_of(v, rows) for k, v in loss_kw.items()}
+            generator = RowDraws(generator, rows)
         batch = batch_to_device(batch, self.device)
         params = state.optimizer.params
         with trace_annotation("loss_and_grad"):
@@ -189,6 +242,8 @@ class Trainer:
             present = [g for g in grads if g is not None]
             metrics = {k: v.detach() for k, v in metrics.items()}
             metrics["loss"] = loss.detach()
+            # one all_reduce: the gradients and the metrics, averaged over the ranks
+            all_reduce_mean(present + list(metrics.values()), self.mesh)
             metrics["grad_norm"] = global_norm(present)
             if self.hp.get("print_nan_grads", False):
                 # reference config key print_nan_grads (config.yaml:42): non-finite gradient elements
@@ -216,18 +271,21 @@ class Trainer:
         if not isinstance(generator, torch.Generator):
             seed = int(hp["seed"] if generator is None else generator)
             generator = torch.Generator(device=self.device).manual_seed(seed)
-        self._save_codes()
+        main = is_main(self.mesh)
+        if main:
+            self._save_codes()
         state = self.init_state()
         start_step = 0
         if resume:
-            ckpt, start_step = load_checkpoint(self.work_dir)
+            ckpt, start_step = self.load_latest()
             if ckpt is not None:
                 self.restore(state, ckpt)
-                print(f"| resumed from step {start_step}")
+                if main:
+                    print(f"| resumed from step {start_step}")
 
         if val_fn is not None and int(hp.get("num_sanity_val_steps", 0)) > 0 and start_step == 0:
             # reference key num_sanity_val_steps (config.yaml:38): the validation path once before training
-            sanity = val_fn(state)
+            sanity = reduce_metrics(val_fn(state), mesh=self.mesh)
             self._write_log({"step": 0, **{f"sanity_{k}": v for k, v in sanity.items()}})
 
         monitor_key = str(hp.get("valid_monitor_key", "val_loss")).removeprefix("val_")
@@ -251,12 +309,13 @@ class Trainer:
                 t0 = time.time()
                 self._metrics_log.append(scalars)
                 self._write_log(scalars)
-                print("| " + json.dumps(scalars))
-                if scalars.get("nan_grads", 0):
-                    print(f"| WARNING: {int(scalars['nan_grads'])} non-finite grad elements")
+                if main:
+                    print("| " + json.dumps(scalars))
+                    if scalars.get("nan_grads", 0):
+                        print(f"| WARNING: {int(scalars['nan_grads'])} non-finite grad elements")
             if hp["val_check_interval"] and step % hp["val_check_interval"] == 0:
                 if val_fn is not None:
-                    val_metrics = val_fn(state)
+                    val_metrics = reduce_metrics(val_fn(state), mesh=self.mesh)
                     self._write_log({"step": step, **{f"val_{k}": v for k, v in val_metrics.items()}})
                     score = monitor_sign * float(val_metrics.get(monitor_key, float("inf") * -monitor_sign))
                     if hp.get("save_best", False) and score > best:
@@ -270,6 +329,12 @@ class Trainer:
             self.save(state, step)
         return state
 
+    def load_latest(self) -> tuple[dict | None, int]:
+        """``(checkpoint, step)`` of rank 0's newest checkpoint in the work
+        dir, on every rank (read by rank 0 and broadcast); ``(None, 0)``
+        when there is none."""
+        return broadcast_object(load_checkpoint(self.work_dir) if is_main(self.mesh) else None, self.mesh)
+
     def restore(self, state: TrainState, ckpt: dict) -> None:
         """Load a checkpoint of :meth:`save` into ``state``."""
         state.model.load_state_dict(ckpt["state_dict"]["model"])
@@ -282,7 +347,11 @@ class Trainer:
     def save(self, state: TrainState, step: int, subdir: str = "") -> None:
         """``{global_step, state_dict: {model}, optimizer_states[, ema]}`` as
         ``model_ckpt_steps_<step>.ckpt``; ``num_ckpt_keep`` kept (1 under
-        ``subdir``)."""
+        ``subdir``). Rank 0 writes; every rank returns once the file is
+        there."""
+        if not is_main(self.mesh):
+            barrier(self.mesh)
+            return
         t0 = time.perf_counter()
         payload = {"global_step": step, "state_dict": {"model": state.model.state_dict()},
                    "optimizer_states": [state.optimizer.state_dict()]}
@@ -291,10 +360,13 @@ class Trainer:
         work_dir = os.path.join(self.work_dir, subdir) if subdir else self.work_dir
         save_checkpoint(payload, work_dir, step, 1 if subdir else self.hp["num_ckpt_keep"])
         self.save_s.append(time.perf_counter() - t0)
+        barrier(self.mesh)
 
     def _write_log(self, scalars: dict) -> None:
         """metrics.jsonl, and the same scalars as TensorBoard events
-        (reference config.yaml:60 ``tb_log_interval``)."""
+        (reference config.yaml:60 ``tb_log_interval``), by rank 0."""
+        if not is_main(self.mesh):
+            return
         os.makedirs(self.work_dir, exist_ok=True)
         with open(os.path.join(self.work_dir, "metrics.jsonl"), "a") as f:
             f.write(json.dumps(scalars) + "\n")

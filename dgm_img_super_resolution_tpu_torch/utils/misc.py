@@ -2,10 +2,12 @@
 ``utils/misc.py``; the reference's helper layer, ``srdiff/model.py:63-75,
 1315-1402``).
 
-The port trains on one device: :func:`reduce_metrics`, the JAX package's
-mean over the mesh's ``dp`` axis, is the identity here (data parallelism
-over ``torch.distributed`` is not ported). Host <-> device moves take an
-explicit device; randomness comes from an explicit ``torch.Generator``.
+
+:func:`reduce_metrics` is the JAX package's mean over the mesh's ``dp``
+axis (``lax.pmean``): an ``all_reduce`` over the ranks of the process
+group, the identity without one (``parallel/mesh.py``). Host <-> device
+moves take an explicit device; randomness comes from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -27,9 +29,40 @@ def _map(fn, tree: Any) -> Any:
     return fn(tree)
 
 
-def reduce_metrics(metrics: Any, axis_name: str = "dp") -> Any:
-    """The mean over the data-parallel processes: the identity on one."""
-    return metrics
+def reduce_metrics(metrics: Any, axis_name: str = "dp", mesh=None) -> Any:
+    """The mean over the ranks of the ``dp`` axis of a tree of tensors and
+    python numbers, each leaf returned as its kind (numbers as floats): the
+    identity in a world of 1. Every rank calls it with a tree of the same
+    structure; one ``all_reduce`` carries every leaf."""
+    from dgm_img_super_resolution_tpu_torch.parallel.mesh import all_reduce_mean, default_mesh
+
+    mesh = default_mesh(mesh)
+    if mesh.world == 1:
+        return metrics
+    if axis_name not in mesh.shape:
+        raise NotImplementedError(f"only the dp axis is ported, not {axis_name!r}")
+    number = (float, int, np.floating, np.integer)
+    leaves: list = []
+    _map(lambda v: leaves.append(v) if isinstance(v, (torch.Tensor, *number)) else None, metrics)
+    if not leaves:
+        return metrics
+    flat = torch.cat([torch.as_tensor(v, dtype=torch.float64).detach().reshape(-1).to(mesh.device)
+                      for v in leaves])
+    all_reduce_mean([flat], mesh)
+    vals, off = flat.cpu(), 0
+
+    def put(v):
+        nonlocal off
+        if isinstance(v, torch.Tensor):
+            out = vals[off: off + v.numel()].view(v.shape).to(v.device, v.dtype)
+            off += v.numel()
+            return out
+        if isinstance(v, number):
+            off += 1
+            return float(vals[off - 1])
+        return v
+
+    return _map(put, metrics)
 
 
 def tensors_to_scalars(tensors: Any) -> Any:

@@ -41,6 +41,17 @@ CONFIGS = {"default": {}, "A": {"DGMSR_PALLAS_DS": "1", "DGMSR_PALLAS_HEAD": "1"
 REGIONS = ("block_chain3_stem", "block_chain3_stem_ds", "block_chain3", "block_chain3_head")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tiny models gain nothing from torch's intra-op threads, and the
+    suite runs several files at once on the host's cores: one thread here,
+    the setting restored after the file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def nchw(a):
     return torch.from_numpy(np.ascontiguousarray(np.transpose(np.asarray(a), (0, 3, 1, 2))))
 

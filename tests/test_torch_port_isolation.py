@@ -9,6 +9,7 @@
 """
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -21,6 +22,9 @@ import dgm_img_super_resolution_tpu_torch as port
 ROOT = Path(__file__).resolve().parents[1]
 PKG = Path(port.__file__).resolve().parent
 FORBIDDEN = ("jax", "flax", "dgm_img_super_resolution_tpu")
+# the child processes run tiny models: torch's intra-op threads only contend
+# with the other files of the suite for the host's cores
+ONE_THREAD = dict(os.environ, OMP_NUM_THREADS="1")
 
 
 def _imports(path: Path):
@@ -29,6 +33,17 @@ def _imports(path: Path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
             yield node.module
+
+
+@pytest.mark.parametrize("sub", ["diffusion", "models", "train/tasks"])
+def test_models_and_losses_import_nothing_of_the_mesh(sub):
+    """Data parallelism stays in the serve, the trainer and the loader: the
+    samplers, models and tasks draw through ``utils/draws.py`` alone."""
+    files = sorted((PKG / sub).rglob("*.py"))
+    assert files
+    for f in files:
+        for name in _imports(f):
+            assert not name.startswith("dgm_img_super_resolution_tpu_torch.parallel"), f"{f} imports {name}"
 
 
 def test_no_jax_imports_anywhere_in_the_port():
@@ -51,7 +66,8 @@ def test_package_imports_with_jax_blocked():
         "    importlib.import_module(n)\n"
         "print(len(names))\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ONE_THREAD, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 15
 
@@ -85,7 +101,8 @@ def test_educational_tasks_and_native_run_with_jax_blocked():
         " and native._so_path().startswith(native._HERE)\n"
         "print(imresize(np.zeros((8, 8, 3), np.uint8), scale=0.5).shape, np.isfinite(r['gen_train_loss']).all())\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ONE_THREAD, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["(4,", "4,", "3)", "True"]
 
@@ -110,7 +127,8 @@ def test_new_serving_paths_run_with_jax_blocked():
         "big = pipe.upscale(np.zeros((12, 12, 3), np.uint8))\n"
         "print(out.shape, big.shape, seen[-1], bool(np.isfinite(out).all() and np.isfinite(big).all()))\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ONE_THREAD, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == "(3, 32, 32, 3) (48, 48, 3) (8, 8) True".split()
 
@@ -142,7 +160,8 @@ def test_cli_runs_with_jax_blocked(tmp_path):
         "       main(['interp', d + '/hr/a.png', d + '/hr/a.png', d + '/mix.png'] + cpu)]\n"
         "print('RCS', rcs, sorted(os.listdir(d + '/gen')), np.asarray(Image.open(d + '/sr.png')).shape)\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ONE_THREAD, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr
     last = out.stdout.strip().splitlines()[-1]
     assert last == "RCS [0, 0, 0, 0] ['a.png', 'op_point_check.json'] (64, 64, 3)"

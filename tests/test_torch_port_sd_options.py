@@ -35,6 +35,17 @@ EPS_SCHEDULER = dict(prediction_type="epsilon", steps_offset=0, set_alpha_to_one
 LOW_RES_SCHEDULER = dict(beta_end=0.03)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tiny models gain nothing from torch's intra-op threads, and the
+    suite runs several files at once on the host's cores: one thread here,
+    the setting restored after the file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def params():
     """The params both ways, and one JAX pipeline per scheduler override:

@@ -36,6 +36,17 @@ TINY = dict(compute_dtype="float32", hidden_size=8, rrdb_num_block=3, rrdb_num_f
 ATOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tiny models gain nothing from torch's intra-op threads, and the
+    suite runs several files at once on the host's cores: one thread here,
+    the setting restored after the file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def nchw(a):
     return torch.from_numpy(np.ascontiguousarray(np.transpose(np.asarray(a), (0, 3, 1, 2))))
 

@@ -57,6 +57,17 @@ UNET_TOL = dict(rtol=1e-4, atol=5e-5)
 CONFIGS = dict(SERVE_CONFIGS, conv={"DGMSR_PALLAS_CONV": "1"})  # conv: the defaults plus row 6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tiny models gain nothing from torch's intra-op threads, and the
+    suite runs several files at once on the host's cores: one thread here,
+    the setting restored after the file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def config(monkeypatch):
     """Sets one named configuration's switches, every other switch unset."""
