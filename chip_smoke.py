@@ -159,7 +159,7 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    full-width ddim20 serve of a batch of 8 (4 a rank), bf16 and float32
    with TF32 off, gathered on both ranks and held against the world-1 serve
    of the same weights and seed (rank 0 alone); each rank's launches of
-   rows 1-3, 20 a serve; bf16 img/s and the batch-1 p50 (replicated) at
+   rows 1-3, 20 a serve; bf16 img/s and the batch-1 p50 (split by rows) at
    both worlds in turns. SRDiff training at full width, bf16, global batch
    64 of 160^2: 3 steps from one state against world 1 (loss, gradient
    norm, parameters in units of the learning rates applied), both ranks
@@ -169,6 +169,18 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    or more cards the training too, at world min(count, 4)), and
    ``dgmsr-torch train`` under ``torchrun --standalone`` for 4 updates
    and one checkpoint.
+17. Spatial sharding (``phase_sp``, ``parallel/mesh.py``'s ``sp`` axis):
+   four ranks share the card over gloo on mesh ``dp=2,sp=2``. The
+   full-width ddim20 serve of batch 1 at LR 128 splits its image rows over
+   the four ranks (32 LR, 128 HR rows a rank; the convs exchange halo rows,
+   the regions run their plain versions): float32 (TF32 off) against the
+   world-1 serve, bf16 against world 1 under ``kernels_disabled()`` (the
+   same route; phase 3's uint8 bounds), every kernel's launches 0 on every
+   rank; a batch of 4 on the same mesh stays on dp (20 launches of rows 1-3
+   a rank). One float32 training step at batch 64 of 160^2, the batch over
+   dp and the image rows over sp, against world 1 (``phase_dp``'s bounds),
+   every rank equal. Timed in turns against world 1: the batch-1 p50, the
+   bf16 step, and a UNet step's halo exchanges (count and ms).
 
 Any failure exits non-zero. The line before the last is the kernel table
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -3065,15 +3077,15 @@ def _dp_rank(rank, world, backend, port, out_dir, train, dtypes, timed):
         dist.destroy_process_group()
 
 
-def _dp_spawn(world, backend, tmp, *args) -> list[dict]:
-    """``world`` ranks of ``_dp_rank``, their results by rank. A rank that
-    raises, or a spawn that outlasts DP_TIMEOUT_S, raises here."""
+def _dp_spawn(world, backend, tmp, *args, fn=None, name=None) -> list[dict]:
+    """``world`` ranks of ``fn`` (``_dp_rank``), their results by rank. A
+    rank that raises, or a spawn that outlasts DP_TIMEOUT_S, raises here."""
     import torch
     import torch.multiprocessing as mp
 
-    out = tmp / f"{backend}{world}"
+    out = tmp / (name or f"{backend}{world}")
     out.mkdir()
-    ctx = mp.start_processes(_dp_rank, args=(world, backend, _free_port(), str(out), *args), nprocs=world,
+    ctx = mp.start_processes(fn or _dp_rank, args=(world, backend, _free_port(), str(out), *args), nprocs=world,
                              join=False, start_method="spawn")
     deadline = time.perf_counter() + DP_TIMEOUT_S
     try:
@@ -3124,7 +3136,7 @@ def _dp_report(label, ranks, card, failures, rows):
         w1, ww = median(s["world1_s"]), median(s["worldW_s"])
         print(f"{card}: {label} bf16 ddim20 B={DP_BATCH} in turns ({DP_ROUNDS} rounds): world 1 {DP_BATCH / w1:.2f} "
               f"img/s ({w1:.3f} s), world {world} {DP_BATCH / ww:.2f} img/s ({ww:.3f} s; x{w1 / ww:.2f}); batch-1 "
-              f"p50 world 1 {median(s['b1_world1_s']):.3f} s, world {world} (replicated) "
+              f"p50 world 1 {median(s['b1_world1_s']):.3f} s, world {world} (split by rows) "
               f"{median(s['b1_worldW_s']):.3f} s", flush=True)
     if "train" not in r0:
         red = r0["all_reduce"]
@@ -3232,6 +3244,307 @@ def phase_dp(rows, card):
         res["cli"] = _dp_cli(tmp, count, card, failures)
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"dp phase {res['phase_s']:.1f} s", flush=True)
+    return res, failures
+
+
+# --------------------------------------------------------------------------
+# Spatial sharding (phase_sp): parallel/mesh.py's sp axis under the SRDiff
+# serve and the trainer. Four ranks share the one card over gloo on mesh
+# dp=2,sp=2, spawned as phase_dp's ranks. A batch-1 request splits its image
+# rows over all four (JAX's shard_spatial), its regions under
+# kernels_disabled() (JAX's _with_pallas_disabled): no kernel launches there.
+SP_WORLD, SP_SPEC = 4, "dp=2,sp=2"
+SP_B1_SERVES, SP_STEP_ROUNDS = 3, 3
+SP_TRAIN_SEED = 70
+
+
+def _sp_zero_paths(rows, path, launches):
+    """Record a path's launches, zeros included, on every row of the table."""
+    for row in rows:
+        row.setdefault("launches_paths", {})[path] = launches.get(row["name"], 0)
+
+
+def _sp_halo(pipe, mesh, rank) -> dict:
+    """A UNet step of the split batch-1 serve: its collectives (from the
+    split's trace), and their replay alone, ms of 5 after one warm-up."""
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.models.layers import kernels_disabled
+    from dgm_img_super_resolution_tpu_torch.ops import rowsplit
+    from dgm_img_super_resolution_tpu_torch.parallel.mesh import row_split
+
+    unet = pipe.model.denoise_fn
+    hr, c = 4 * SERVE_LR // SP_WORLD, unet.dim
+    g = torch.Generator(device="cuda").manual_seed(rank)
+    x = torch.randn((1, 3, hr, 4 * SERVE_LR), generator=g, device="cuda")
+    cond = torch.randn((1, c, hr, 4 * SERVE_LR), generator=g, device="cuda").to(unet.dtype)
+    t = torch.full((1,), 500, device="cuda", dtype=torch.long)
+    trace = []
+    with torch.inference_mode(), kernels_disabled():
+        with row_split(mesh, trace=trace):
+            unet(x, t, cond, cond_projected=True, up_folded=True)
+        bufs = [torch.zeros(shape, dtype=d, device="cuda") for _, shape, d in trace]
+        ms = []
+        with row_split(mesh):
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for b in bufs:
+                    rowsplit.halo(b, 1)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+    return {"count": len(trace), "kinds": sorted({k for k, _, _ in trace}), "ms": ms[1:],
+            "mib": sum(SP_WORLD * 2 * s[0] * s[1] * s[3] * torch.tensor([], dtype=d).element_size()
+                       for _, s, d in trace) / 2**20}
+
+
+def _sp_serve(rank, mesh, counters, res):
+    """The batch-1 serve split by rows, float32 and bf16, against world 1;
+    a batch of 4 on dp; the batch-1 p50 and a UNet step's halo exchanges,
+    timed in turns with world 1."""
+    import contextlib as cl
+
+    import numpy as np
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.inference import SRDiffPipeline
+    from dgm_img_super_resolution_tpu_torch.models.layers import kernels_disabled
+    from dgm_img_super_resolution_tpu_torch.parallel.mesh import Mesh, barrier
+
+    imgs = np.random.default_rng(1).integers(0, 256, (4, SERVE_LR, SERVE_LR, 3), dtype=np.uint8)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)  # noqa: E731
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    for dtype in ("float32", "bfloat16"):
+        f32 = dtype == "float32"
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = (False, False) if f32 else tf32
+        hp = Hparams(sampler="ddim", sample_timesteps=20, ddim_eta=1.0, compute_dtype=dtype)
+        pipe = SRDiffPipeline(hp, mesh=mesh)
+        one = SRDiffPipeline(hp, params=pipe.model.state_dict(), mesh=Mesh({"dp": 1}, 0))
+        if not f32:
+            pipe.upscale_batch_device(imgs[:1], generator=gen())  # warm-up
+        out, dt, launches = _timed_serve(pipe, imgs[:1], counters, generator=gen(), as_uint8=not f32)
+        r = {"spatial": pipe._spatial_serving(1, SERVE_LR), "launches": launches, "s": dt,
+             "shape": tuple(out.shape), "finite": bool(torch.isfinite(out.float()).all())}
+        if rank == 0:
+            with cl.nullcontext() if f32 else kernels_disabled():
+                ref = one.upscale_batch_device(imgs[:1], generator=gen(), as_uint8=not f32)
+            if f32:
+                r["max_abs_vs_world1"] = float((out - ref).abs().max())
+            else:
+                r["uint8"] = (out.cpu(), ref.cpu())
+        if not f32:
+            _, _, r["b4_launches"] = _timed_serve(pipe, imgs, counters, generator=gen())
+            r["halo"] = _sp_halo(pipe, mesh, rank)
+            b1, bw = [], []
+            for _ in range(SP_B1_SERVES):  # world 1 (its kernels) then world 4 (split), in turns
+                barrier()
+                if rank == 0:
+                    b1.append(_timed_serve(one, imgs[:1], counters, generator=gen())[1])
+                barrier()
+                bw.append(_timed_serve(pipe, imgs[:1], counters, generator=gen())[1])
+            r.update(b1_world1_s=b1, b1_worldW_s=bw)
+        res[f"serve_{dtype}"] = r
+        del pipe, one
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _sp_train(rank, mesh, counters, work, res):
+    """One float32 spatial step at batch 64 of 160^2 against world 1 (rank
+    0 alone) from one state, generator and batch; every rank's parameters
+    equal; then the bf16 step's ms at both worlds, in turns."""
+    import torch
+    import torch.distributed as dist
+
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.parallel.mesh import Mesh, barrier
+    from dgm_img_super_resolution_tpu_torch.train.tasks.srdiff import SRDiffTask
+
+    batch = _train_batch(TRAIN_BATCH, TRAIN_HR, SP_TRAIN_SEED)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(7)  # noqa: E731
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    hp = Hparams(**dict(TRAIN_HP, compute_dtype="float32", work_dir=str(work)))
+    if rank == 0:
+        tr1 = SRDiffTask(hp).make_trainer(mesh=Mesh({"dp": 1}, 0))
+        s1, m1 = tr1.train_step(tr1.init_state(), batch, gen())
+        m1, p1 = {k: float(v) for k, v in m1.items()}, _dp_params(s1.model)
+        del tr1, s1
+    barrier()
+    trainer = SRDiffTask(hp).make_trainer(mesh=mesh)
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    _reset_counts(counters)
+    state, m2 = trainer.train_step(state, batch, gen(), spatial=True)
+    torch.cuda.synchronize()
+    r = {"launches": {k: v for k, v in _read_counts(counters).items() if v}}
+    p2 = _dp_params(state.model)
+    flat = torch.cat([p.flatten() for p in p2.values()])
+    other = flat.clone()
+    dist.broadcast(other, 0)
+    r["ranks_equal"] = bool(torch.equal(flat, other))
+    if rank == 0:
+        m2 = {k: float(v) for k, v in m2.items()}
+        adam, named = state.optimizer.adam.state, dict(state.model.named_parameters())
+        trained = [n for n in p1 if named[n] in adam]
+        s = hp["lr"]
+        d = torch.cat([(p2[n] - p1[n]).abs().flatten() for n in trained])
+        steady = 0.0
+        for n in trained:
+            mu = adam[named[n]]["exp_avg"].abs()
+            steady = max(steady, float((p2[n] - p1[n]).abs()[mu >= DP_STEADY_MU * mu.max()].max()))
+        r["errs"] = {"loss_rel": abs(m2["loss"] - m1["loss"]) / abs(m1["loss"]),
+                     "grad_norm_rel": abs(m2["grad_norm"] - m1["grad_norm"]) / abs(m1["grad_norm"]),
+                     "param_max_lr": float(d.max()) / s, "param_mean_lr": float(d.mean()) / s,
+                     "steady_lr": steady / s,
+                     "fixed_max": max(float((p2[n] - p1[n]).abs().max()) for n in p1 if n not in trained),
+                     "loss": m2["loss"], "loss_world1": m1["loss"]}
+    del state, trainer
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    # the bf16 step's ms: world 1 (rank 0, its kernels) and the split step, in turns after a warm-up each
+    hp16 = Hparams(**dict(TRAIN_HP, work_dir=str(work)))
+    st = SRDiffTask(hp16).make_trainer(mesh=mesh)
+    state = st.init_state()
+    one = SRDiffTask(hp16).make_trainer(mesh=Mesh({"dp": 1}, 0)) if rank == 0 else None
+    s1 = one.init_state() if one is not None else None
+    g = gen()
+    ms1, msw = [], []
+    for i in range(SP_STEP_ROUNDS + 1):
+        barrier()
+        if one is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one.train_step(s1, batch, g)
+            torch.cuda.synchronize()
+            ms1.append(1e3 * (time.perf_counter() - t0))
+        barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st.train_step(state, batch, g, spatial=True)
+        torch.cuda.synchronize()
+        msw.append(1e3 * (time.perf_counter() - t0))
+    r.update(step_ms_world1=ms1[1:], step_ms=msw[1:])
+    res["train"] = r
+    del state, st, one, s1
+    torch.cuda.empty_cache()
+
+
+def _sp_rank(rank, world, backend, port, out_dir):
+    """One rank of mesh SP_SPEC: torchrun's environment,
+    ``init_distributed``, the serve and the training step; its results to
+    ``out_dir/rank<R>.pt``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    import torch
+    import torch.distributed as dist
+
+    from dgm_img_super_resolution_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    if not init_distributed(backend=backend, timeout_s=120):
+        raise RuntimeError("init_distributed did not join the group")
+    try:
+        mesh = make_mesh(SP_SPEC)
+        res = {"rank": rank, "backend": dist.get_backend(), "mesh": mesh.shape,
+               "coords": (mesh.dp_rank, mesh.sp_rank), "device": f"cuda:{torch.cuda.current_device()}"}
+        counters = _counters()
+        t0 = time.perf_counter()
+        _sp_serve(rank, mesh, counters, res)
+        res["serve_part_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _sp_train(rank, mesh, counters, Path(out_dir) / "train", res)
+        res["train_part_s"] = time.perf_counter() - t0
+        torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sp(rows, card):
+    """Spatial sharding: four ranks sharing the card over gloo on mesh
+    dp=2,sp=2 (the batch-1 serve split by rows in float32 and bf16 against
+    world 1 with 0 launches, a batch of 4 on dp with its launches, one
+    float32 spatial training step against world 1, times in turns)."""
+    import tempfile
+
+    import torch
+
+    res, failures = {}, []
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    label = f"sp gloo world {SP_WORLD} {SP_SPEC} on one card"
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            ranks = _dp_spawn(SP_WORLD, "gloo", Path(tmp), fn=_sp_rank, name="sp")
+        except Exception as e:  # a rank's error, printed; the phase fails
+            print(f"{label}: FAIL {type(e).__name__}: {e}", flush=True)
+            failures.append(f"{label}: {type(e).__name__}")
+            ranks = None
+    if ranks is not None:
+        r0 = ranks[0]
+        print(f"{label}: ranks {[r['rank'] for r in ranks]} at (dp, sp) {[r['coords'] for r in ranks]}, backend "
+              f"{r0['backend']}, mesh {r0['mesh']}; rank 0's serve part {r0['serve_part_s']:.1f} s, training part "
+              f"{r0['train_part_s']:.1f} s", flush=True)
+        shape = (1, 4 * SERVE_LR, 4 * SERVE_LR, 3)
+        for dtype in ("float32", "bfloat16"):
+            key, s = f"serve_{dtype}", r0[f"serve_{dtype}"]
+            zero = all(not r[key]["launches"] for r in ranks)
+            ok = zero and all(r[key]["spatial"] and r[key]["finite"] and r[key]["shape"] == shape for r in ranks)
+            if dtype == "float32":
+                ok = ok and s["max_abs_vs_world1"] <= DP_F32_TOL
+            print(f"{label}: serve ddim20 {dtype} B=1 {SERVE_LR}->{4 * SERVE_LR} split by rows "
+                  f"({SERVE_LR // SP_WORLD} LR rows a rank) {s['s']:.3f} s"
+                  + (f", vs world 1 max_abs_err {s['max_abs_vs_world1']:.3e} (tol {DP_F32_TOL})" if dtype == "float32"
+                     else "") + f"; launches a rank {[r[key]['launches'] for r in ranks]} (expected none) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"{label} serve {dtype}: zero launches {zero}, err {s.get('max_abs_vs_world1')}")
+            if dtype == "bfloat16":
+                s["uint8_vs_world1"] = _uint8_check(f"{label}: bf16 split vs world 1 under kernels_disabled()",
+                                                    *s.pop("uint8"), failures, max_bound=DP_UINT8_MAX)
+            merged = {}
+            for r in ranks:
+                for k, v in r[key]["launches"].items():
+                    merged[k] = max(merged.get(k, 0), v)
+            _sp_zero_paths(rows, f"sp_serve_b1_{dtype}", merged)
+        s = r0["serve_bfloat16"]
+        want = SERVE_LAUNCHES["default"]
+        ok = all(r["serve_bfloat16"]["b4_launches"] == want for r in ranks)
+        print(f"{label}: serve bf16 B=4 on dp (2 a rank, replicated over sp): launches a rank "
+              f"{[r['serve_bfloat16']['b4_launches'] for r in ranks]} (expected {want}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(f"{label} serve B=4 launches")
+        for r in ranks:
+            _note_launches(rows, f"sp_serve_b4_rank{r['rank']}", r["serve_bfloat16"]["b4_launches"])
+        h = s["halo"]
+        print(f"{card}: {label} bf16 batch-1 p50 in turns ({SP_B1_SERVES} each): world 1 (kernels) "
+              f"{median(s['b1_world1_s']):.3f} s, world {SP_WORLD} split {median(s['b1_worldW_s']):.3f} s; a UNet "
+              f"step's collectives {h['count']} ({', '.join(h['kinds'])}; {h['mib']:.1f} MiB of buffers), replayed "
+              f"alone {median(h['ms']):.2f} ms", flush=True)
+        t = r0["train"]
+        e = t["errs"]
+        zero = all(not r["train"]["launches"] for r in ranks)
+        ok = (e["loss_rel"] <= DP_LOSS_REL and e["grad_norm_rel"] <= DP_GNORM_REL
+              and e["param_max_lr"] <= DP_PARAM_ALL and e["param_mean_lr"] <= DP_PARAM_MEAN
+              and e["steady_lr"] <= DP_PARAM_STEADY and e["fixed_max"] == 0 and zero
+              and all(r["train"]["ranks_equal"] for r in ranks))
+        print(f"{label}: train float32 B={TRAIN_BATCH} {TRAIN_HR}^2 (batch over dp, {TRAIN_HR // 2} HR rows a rank "
+              f"over sp), one step vs world 1 from one state: loss rel {e['loss_rel']:.2e} (tol {DP_LOSS_REL}), "
+              f"grad_norm rel {e['grad_norm_rel']:.2e} (tol {DP_GNORM_REL}); parameters in lr: max "
+              f"{e['param_max_lr']:.3e} (tol {DP_PARAM_ALL}), mean {e['param_mean_lr']:.3e} (tol {DP_PARAM_MEAN}), "
+              f"where |mu| >= {DP_STEADY_MU} of its tensor's max {e['steady_lr']:.3e} (tol {DP_PARAM_STEADY}), "
+              f"fixed RRDB {e['fixed_max']:.1e}; ranks equal {[r['train']['ranks_equal'] for r in ranks]}; "
+              f"launches {[r['train']['launches'] for r in ranks]} (expected none) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(f"{label} train: {e}, zero launches {zero}")
+        _sp_zero_paths(rows, "sp_train_step_float32", {})
+        print(f"{card}: {label} train step B={TRAIN_BATCH} bf16 in turns: world 1 (kernels) "
+              f"{median(t['step_ms_world1']):.1f} ms, world {SP_WORLD} split {median(t['step_ms']):.1f} ms", flush=True)
+        res["ranks"] = ranks
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"sp phase {res['phase_s']:.1f} s", flush=True)
     return res, failures
 
 
@@ -3796,10 +4109,11 @@ def main() -> int:
     sd_e2e, f8 = phase_sd_card_vs_cpu()
     train, f11 = phase_train(rows, card)
     dp, f15 = phase_dp(rows, card)
+    sp, f16 = phase_sp(rows, card)
     sampler_api, f12 = phase_sampler_api()
     edu, f13 = phase_edu(rows, card)
     native, f14 = phase_native(card)
-    failures += f3 + f3c + f3b + f4 + f4b + f5 + f6 + f7 + f7b + f9 + f10 + f8 + f11 + f15 + f12 + f13 + f14
+    failures += f3 + f3c + f3b + f4 + f4b + f5 + f6 + f7 + f7b + f9 + f10 + f8 + f11 + f15 + f16 + f12 + f13 + f14
     missing = [row["name"] for row in rows if row["launches"] is None]
     if missing:
         failures.append(f"no launch count for {missing}")
@@ -3808,7 +4122,7 @@ def main() -> int:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "kernels": rows, "pipeline": pipe, "serving_paths": paths, "bf16_forward": fwd16,
              "card_vs_cpu": e2e, "backward": bwd, "sd": sd, "sd_options": sd_opts, "checkpoint_cli": ckpt_cli,
-             "sd_local_checkpoint": sd_local, "sd_card_vs_cpu": sd_e2e, "train": train, "dp": dp,
+             "sd_local_checkpoint": sd_local, "sd_card_vs_cpu": sd_e2e, "train": train, "dp": dp, "sp": sp,
              "sampler_api": sampler_api, "edu": edu, "native": native, "failures": failures},
             indent=1))
     if failures:

@@ -9,9 +9,10 @@ upstream SRDiff checkpoint; without it the weights are a seeded random init.
 ``work_dir`` (``--exp_name`` sets it to ``checkpoints/<name>``), resuming
 from its newest checkpoint; under ``torchrun`` it joins the process group
 first and trains data-parallel over its ranks (``parallel/mesh.py``:
-``hp['mesh_shape']`` names the ``dp`` axis, every rank by default), each
-rank on its own card (``--device cpu``: gloo on the CPU), rank 0 printing
-and writing. The JAX CLI's ``bench`` is not ported yet.
+``hp['mesh_shape']`` names the ``dp`` and ``sp`` axes, every rank on dp by
+default; as JAX's ``fit``, the batch splits over dp and is replicated over
+sp, each dp row cropping its own images), each rank on its own card
+(``--device cpu``: gloo on the CPU), rank 0 printing and writing. The JAX CLI's ``bench`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -106,7 +107,7 @@ def cmd_train(args) -> int:
         mesh = make_mesh(hp.get("mesh_shape", ""))
         size = hp.get("patch_size", 160)
         ds = DIV2KDataset(args.data_dir, scale_factor=hp["sr_scale"], hr_height=size, hr_width=size,
-                          data_augmentation=hp["data_augmentation"], rank=mesh.rank)
+                          data_augmentation=hp["data_augmentation"], rank=mesh.dp_rank)
         loader = DataLoader(ds, hp["batch_size"], num_workers=hp["num_workers"], endless=True, seed=hp["seed"],
                             mesh=mesh)
         trainer = SRDiffTask(hp).make_trainer(device=args.device or None, mesh=mesh)

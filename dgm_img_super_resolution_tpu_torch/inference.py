@@ -27,14 +27,32 @@ its key; without one, each chunk draws from a generator seeded by a draw
 from its parent's generator.
 
 Data parallelism (``parallel/mesh.py``). Under a process group of W ranks
-(``torchrun``) the pipeline's ``mesh`` (from ``hp['mesh_shape']``) puts
-every rank on ``dp``: the weights are broadcast from rank 0, each sampler
-call serves this rank's rows of its batch and gathers the whole batch on
-every rank, so every rank returns the images of a one-process serve. The
-budget is then one card's: a batch that W divides may hold W times the
-budget, and sub-batches are sized in multiples of W; a batch that W does
-not divide is served whole on every rank (with a warning). Noise is drawn
-or asked of the hook for the whole batch and sliced to the rows.
+(``torchrun``) the pipeline's ``mesh`` (from ``hp['mesh_shape']``, every
+rank on ``dp`` by default) holds the weights broadcast from rank 0, and
+every rank returns the images of a one-process serve. A sampler call whose
+batch W divides serves this rank's rows of it (over ``dp``, replicated over
+``sp``) and gathers the whole batch. The budget is then one card's: a batch
+that W divides may hold W times the budget, and sub-batches are sized in
+multiples of W.
+
+Spatial sharding (JAX ``inference.py:85 _spatial_serving``). A call whose
+batch W does not divide (batch 1, the usual case) splits the image rows
+over all W ranks instead, as JAX's ``shard_spatial`` splits them over every
+mesh axis: JAX's rule (the padded LR rows divide by W, at least 2 a rank;
+on the fast path, without a progress callback, the unpadded rows too),
+and the port's own, that each rank's HR rows divide by 2^(stages - 1), so
+that the UNet's Downsamples split evenly (GSPMD pads an uneven split; the
+port does not). Every rank pads the whole LR batch and takes its rows of
+the x4 bicubic (``resize(rows=)``), of the LR image and of the noise,
+drawn or asked of the hook for the whole image; the sampler runs under
+``parallel.mesh.row_split`` (the convs exchange halo rows) and
+``kernels_disabled()``, as JAX's ``_with_pallas_disabled``: a kernel would
+pad a shard's edges as the image's. The image rows are gathered at the
+end. A request that passes JAX's rule but not the port's is served as a
+batch that W does not divide, whole on every rank of a dp row, with a
+warning that names the reason: placed otherwise than JAX places it, the
+same images. Noise is drawn or asked of the hook for the whole batch and
+sliced to the rows.
 
 Weights: a state dict under the reference checkpoint's names, the upstream
 checkpoint file itself (``ckpt_path``, through
@@ -45,6 +63,7 @@ init. ``interpolate`` mixes two HR images in the diffusion's latent space
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from typing import Callable, Mapping
 
@@ -56,6 +75,7 @@ from dgm_img_super_resolution_tpu_torch.core.config import Hparams
 from dgm_img_super_resolution_tpu_torch.core.device import resolve_device
 from dgm_img_super_resolution_tpu_torch.diffusion.gaussian import as_noise_hook
 from dgm_img_super_resolution_tpu_torch.models.factory import build_srdiff, init_srdiff_params
+from dgm_img_super_resolution_tpu_torch.models.layers import kernels_disabled
 from dgm_img_super_resolution_tpu_torch.ops.image import (
     extract_patches,
     extract_tiles,
@@ -67,10 +87,14 @@ from dgm_img_super_resolution_tpu_torch.ops.resize import resize
 from dgm_img_super_resolution_tpu_torch.parallel.mesh import (
     Mesh,
     batch_rows,
+    gather_image_rows,
     gather_rows,
     make_mesh,
     replicate,
+    row_split,
     shard_batch,
+    shard_spatial,
+    spatial_shardable,
 )
 
 logger = logging.getLogger("dgm_img_super_resolution_tpu_torch.inference")
@@ -151,6 +175,18 @@ class SRDiffPipeline:
         pw = next(p for p in range(div + 1) if (w + p) * scale % div == 0)
         return ph, pw
 
+    def _rows_split_evenly(self, h: int) -> bool:
+        """The port's own rule: each rank's HR rows of ``h`` padded LR rows
+        divide by 2^(stages - 1)."""
+        div = 2 ** (len(self.hp.unet_dim_mults_tuple) - 1)
+        return h * self.hp["sr_scale"] % (self.mesh.world * div) == 0
+
+    def _spatial_serving(self, n: int, h: int) -> bool:
+        """A call of ``n`` images of ``h`` padded LR rows splits its image
+        rows over every rank: the world does not divide the batch, JAX's
+        ``spatial_shardable`` holds and the rows split evenly down the UNet."""
+        return n % self.mesh.world != 0 and spatial_shardable(h, self.mesh) and self._rows_split_evenly(h)
+
     def _padded_hr_pixels(self, h: int, w: int) -> int:
         """HR pixels of one image as the sampler runs it, at the padded size."""
         ph, pw = self._pad(h, w)
@@ -192,7 +228,7 @@ class SRDiffPipeline:
                 outs.append(torch.round(sr * 255.0).to(torch.uint8) if as_uint8 else sr)
             return torch.stack(outs)
         per_img, budget = self._padded_hr_pixels(h, w), self._budget()
-        ndev = self.mesh.dp
+        ndev = self.mesh.world
         # a batch that shards holds ndev cards' budgets; one that replicates, one card's
         if budget and n > 1 and n * per_img > budget * (ndev if n % ndev == 0 else 1):
             # the largest sub-batch within budget that still shards
@@ -211,13 +247,20 @@ class SRDiffPipeline:
         return self._serve(x, gen, as_uint8, noise, progress_cb, callback_steps)
 
     def _serve(self, x, gen, as_uint8, noise, progress_cb, callback_steps) -> torch.Tensor:
-        """One sampler call over the whole batch: this rank's rows of it,
-        then the whole batch gathered."""
+        """One sampler call over the whole batch: this rank's rows of it, or
+        of its images' rows, then the whole batch gathered."""
         n, h, w = (int(v) for v in x.shape[:3])
         ph, pw = self._pad(h, w)
         scale = self.hp["sr_scale"]
+        # JAX's fast path also wants the unpadded rows to split (inference.py:350)
+        fast_ok = progress_cb is not None or ph == 0 or spatial_shardable(h, self.mesh)
+        spatial = fast_ok and self._spatial_serving(n, h + ph)
+        if fast_ok and not spatial and n % self.mesh.world and spatial_shardable(h + ph, self.mesh):
+            logger.warning("serve: %d LR rows on %d ranks are not split: each rank's %d HR rows do not divide "
+                           "by 2^(stages - 1) = %d, as the UNet's Downsamples need", h + ph, self.mesh.world,
+                           (h + ph) * scale // self.mesh.world, 2 ** (len(self.hp.unet_dim_mults_tuple) - 1))
         rows = batch_rows(n, self.mesh)
-        x = shard_batch(x, self.mesh).to(self.device)
+        x = (x if spatial else shard_batch(x, self.mesh)).to(self.device)
         x = uint8_to_pm1(x) if x.dtype == torch.uint8 else x.to(torch.float32)
         x = x.permute(0, 3, 1, 2)
         if ph or pw:
@@ -226,44 +269,60 @@ class SRDiffPipeline:
         hr = ((h + ph) * scale, (w + pw) * scale)
         if isinstance(noise, ChunkNoise):
             noise = noise.hook((n, 3) + hr)
-        img_lr_up = resize(x, hr, variant="torch")
-        if rows.split:
-            # the whole batch's noise, drawn or asked of the hook, and this rank's rows of it
-            whole = as_noise_hook(noise, (n,) + tuple(img_lr_up.shape[1:]), self.device, gen)
-            noise = lambda t: rows.take(whole(t))  # noqa: E731
+        if spatial:
+            # every rank holds the whole LR batch: its rows of the bicubic, of the LR and of the noise
+            hr_rows = shard_spatial(hr[0], self.mesh)
+            img_lr_up = resize(x, hr, variant="torch", rows=slice(hr_rows.start, hr_rows.stop))
+            x = shard_spatial(h + ph, self.mesh).take(x, dim=2)
+            whole = as_noise_hook(noise, (n, 3) + hr, self.device, gen)
+            noise = lambda t: hr_rows.take(whole(t), dim=2)  # noqa: E731
+        else:
+            img_lr_up = resize(x, hr, variant="torch")
+            if rows.split:
+                # the whole batch's noise, drawn or asked of the hook, and this rank's rows of it
+                whole = as_noise_hook(noise, (n,) + tuple(img_lr_up.shape[1:]), self.device, gen)
+                noise = lambda t: rows.take(whole(t))  # noqa: E731
+        with contextlib.ExitStack() as stack:
+            if spatial:
+                stack.enter_context(row_split(self.mesh))
+                stack.enter_context(kernels_disabled())
+            img = self._sample(x, img_lr_up, gen, noise, progress_cb, callback_steps)
+        out = (img * 0.5 + 0.5).clamp(0.0, 1.0)
+        out = gather_image_rows(out, hr_rows, self.mesh) if spatial else gather_rows(out, rows, self.mesh)
+        out = out[:, :, : h * scale, : w * scale].permute(0, 2, 3, 1)
+        if as_uint8:
+            out = torch.round(out * 255.0).to(torch.uint8)
+        return out
+
+    def _sample(self, x, img_lr_up, gen, noise, progress_cb, callback_steps) -> torch.Tensor:
+        """The sampler from the LR and its bicubic (NCHW) to the image in
+        [-1, 1]: in one go, or in segments of ``callback_steps`` steps."""
         d = self.model
         ddim = self.hp.get("sampler", "ddpm") == "ddim"
         eta = float(self.hp.get("ddim_eta", 0.0))
         num_steps = self.hp.get("sample_timesteps", 0) or None
         if progress_cb is None:
             if ddim:
-                img, _ = d.ddim_sample(x, img_lr_up, num_steps=num_steps, eta=eta, noise=noise, generator=gen,
-                                       enc_interval=int(self.hp.get("enc_interval", 1) or 1))
-            else:
-                img, _ = d.sample(x, img_lr_up, noise=noise, generator=gen)
+                return d.ddim_sample(x, img_lr_up, num_steps=num_steps, eta=eta, noise=noise, generator=gen,
+                                     enc_interval=int(self.hp.get("enc_interval", 1) or 1))[0]
+            return d.sample(x, img_lr_up, noise=noise, generator=gen)[0]
+        # the exact sampler in segments of callback_steps steps
+        if ddim:
+            ts, ts_prev = d.ddim_timesteps(num_steps)
         else:
-            # the exact sampler in segments of callback_steps steps
+            ts = list(range(d.num_timesteps - 1, -1, -1))
+            ts_prev = [t - 1 for t in ts]
+        xt, cond, _, hook = d.sample_prepare(x, img_lr_up, noise, gen)
+        step, done = max(1, int(callback_steps)), 0
+        while done < len(ts):
+            seg = slice(done, min(done + step, len(ts)))
             if ddim:
-                ts, ts_prev = d.ddim_timesteps(num_steps)
+                xt = d.ddim_segment(xt, cond, img_lr_up, ts[seg], ts_prev[seg], hook, eta)
             else:
-                ts = list(range(d.num_timesteps - 1, -1, -1))
-                ts_prev = [t - 1 for t in ts]
-            xt, cond, _, hook = d.sample_prepare(x, img_lr_up, noise, gen)
-            step, done = max(1, int(callback_steps)), 0
-            while done < len(ts):
-                seg = slice(done, min(done + step, len(ts)))
-                if ddim:
-                    xt = d.ddim_segment(xt, cond, img_lr_up, ts[seg], ts_prev[seg], hook, eta)
-                else:
-                    xt = d.sample_segment(xt, cond, img_lr_up, ts[seg], hook)
-                done = seg.stop
-                progress_cb(done, len(ts))
-            img = d.res2img(xt, img_lr_up)
-        out = (img * 0.5 + 0.5).clamp(0.0, 1.0)[:, :, : h * scale, : w * scale]
-        out = gather_rows(out.permute(0, 2, 3, 1), rows, self.mesh)
-        if as_uint8:
-            out = torch.round(out * 255.0).to(torch.uint8)
-        return out
+                xt = d.sample_segment(xt, cond, img_lr_up, ts[seg], hook)
+            done = seg.stop
+            progress_cb(done, len(ts))
+        return d.res2img(xt, img_lr_up)
 
     def upscale_batch(self, imgs, generator: torch.Generator | None = None, noise=None,
                       progress_cb: ProgressCb | None = None, callback_steps: int = 1) -> np.ndarray:

@@ -23,6 +23,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dgm_img_super_resolution_tpu_torch.ops import rowsplit
+
 
 def _tensor(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
@@ -44,9 +46,16 @@ def _gaussian_window(window_size: int, sigma: float) -> np.ndarray:
 
 
 def _depthwise(x: torch.Tensor, win: torch.Tensor, padding: int) -> torch.Tensor:
-    """NCHW depthwise conv with the same window on every channel."""
+    """NCHW depthwise conv with the same window on every channel; under a
+    row split (``ops/rowsplit.py``) over this member's rows, with its
+    neighbours' ``padding`` rows and zeros at the image's outer rows."""
     c = x.shape[1]
-    return F.conv2d(x, win.to(x.device)[None, None].expand(c, 1, *win.shape), padding=padding, groups=c)
+    w = win.to(x.device)[None, None].expand(c, 1, *win.shape)
+    if rowsplit.active() is not None:
+        if not padding:
+            raise NotImplementedError("a valid window under a row split")
+        return F.conv2d(rowsplit.halo(x, padding), w, padding=(0, padding), groups=c)
+    return F.conv2d(x, w, padding=padding, groups=c)
 
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11, size_average: bool = True,

@@ -22,6 +22,15 @@ conditions and drop its TPU tile conditions (H, W multiples of 8 or 16, W >=
 look at the device either, so the CPU runs the same routing through the
 kernels' plain versions. Under ``kernels_disabled()`` every gate returns
 False.
+
+Under a row split (``ops/rowsplit.py``, installed by ``parallel/mesh.py``
+for a spatial call, with ``kernels_disabled()``) each member holds a run of
+every activation's rows: ``reflect_pad1`` and ``conv`` take the
+neighbours' rows at the inner edges (the reflect only at the image's top
+and bottom; zeros there for zero-padded convs; a ConvT's input rows each
+side, its output rows cropped), a Block's GroupNorm and
+``LinearAttention``'s pixel softmax and context add their sums over the
+members. 1x1 convs and everything per pixel need nothing.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dgm_img_super_resolution_tpu_torch.ops import rowsplit
 from dgm_img_super_resolution_tpu_torch.ops.kernels._common import CHAIN_WIDTHS
 
 _CHAIN_CHANNELS = (64,)
@@ -148,7 +158,10 @@ def reflect_pad1(x: torch.Tensor) -> torch.Tensor:
     """ReflectionPad(1) of an NCHW-shaped tensor, written channels_last on
     the card (CUDA's ``F.pad(mode="reflect")`` writes NCHW, and cuDNN then
     transposes around every conv): the interior, then the top and bottom
-    rows, then the left and right columns, corners included."""
+    rows, then the left and right columns, corners included. Under a row
+    split (``ops/rowsplit.py``) the neighbours' rows pad the inner edges."""
+    if rowsplit.active() is not None:
+        return rowsplit.reflect_pad1(x)
     b, c, h, w = x.shape
     fmt = torch.channels_last if x.is_cuda else torch.contiguous_format
     out = torch.empty((b, c, h + 2, w + 2), dtype=x.dtype, device=x.device, memory_format=fmt)
@@ -161,17 +174,26 @@ def reflect_pad1(x: torch.Tensor) -> torch.Tensor:
 
 
 def reflect_conv3x3(x, weight, bias=None, stride: int = 1):
-    """ReflectionPad(1) + 3x3 conv in the dtype of ``x``."""
+    """ReflectionPad(1) + 3x3 conv in the dtype of ``x``. Under a row split
+    a stride-2 conv needs an even count of rows a member, so that every
+    member's first row sits at an even image row."""
     dt = x.dtype
+    if stride == 2 and rowsplit.active() is not None and x.shape[2] % 2:
+        raise ValueError(f"a row split of a stride-2 conv needs an even count of rows a member, not {x.shape[2]}")
     return F.conv2d(
         reflect_pad1(x), weight.to(dt), None if bias is None else bias.to(dt), stride=stride,
     )
 
 
 def conv(x, layer: nn.Conv2d | nn.ConvTranspose2d):
-    """Apply a conv layer's params in the dtype of ``x``."""
+    """Apply a conv layer's params in the dtype of ``x``; under a row split
+    (``ops/rowsplit.py``) over this member's rows, with its neighbours'."""
     dt = x.dtype
     w, b = layer.weight.to(dt), None if layer.bias is None else layer.bias.to(dt)
+    if rowsplit.active() is not None and layer.kernel_size[0] > 1:
+        if isinstance(layer, nn.ConvTranspose2d):
+            return rowsplit.conv_transpose2d(x, w, b, layer.stride, layer.padding, layer.output_padding)
+        return rowsplit.conv2d(x, w, b, layer.stride, layer.padding)
     if isinstance(layer, nn.ConvTranspose2d):
         return F.conv_transpose2d(x, w, b, layer.stride, layer.padding, layer.output_padding)
     return F.conv2d(x, w, b, layer.stride, layer.padding)
@@ -215,8 +237,9 @@ class Block(nn.Module):
         if self.groups <= 0:
             return self._conv(x, True, joined)
         gn = self.block[2]
-        y = F.group_norm(self._conv(x, False, joined).float(), self.groups, gn.weight, gn.bias, gn.eps)
-        return mish(y.to(x.dtype))
+        y = self._conv(x, False, joined).float()
+        norm = rowsplit.group_norm if rowsplit.active() is not None else F.group_norm
+        return mish(norm(y, self.groups, gn.weight, gn.bias, gn.eps).to(x.dtype))
 
 
 class ResnetBlock(nn.Module):
@@ -287,8 +310,10 @@ class LinearAttention(nn.Module):
         b, _, h, w = x.shape
         qkv = conv(x, self.to_qkv).reshape(b, 3, self.heads, self.dim_head, h * w)
         q, k, v = qkv.unbind(1)
-        k = k.softmax(dim=-1)
-        context = torch.einsum("bhdn,bhen->bhde", k, v)
+        if rowsplit.active() is None:
+            context = torch.einsum("bhdn,bhen->bhde", k.softmax(dim=-1), v)
+        else:  # the softmax and the context over the whole image's pixels
+            context = rowsplit.all_sum(torch.einsum("bhdn,bhen->bhde", rowsplit.pixel_softmax(k), v))
         out = torch.einsum("bhde,bhdn->bhen", context, q)
         return conv(out.reshape(b, self.heads * self.dim_head, h, w), self.to_out)
 

@@ -139,11 +139,12 @@ def resize_matrix(in_len: int, out_len: int, variant: str = "matlab", method: st
 
 
 def resize(x: torch.Tensor, out_hw: tuple[int, int], variant: str = "matlab",
-           method: str = "bicubic") -> torch.Tensor:
+           method: str = "bicubic", rows: slice | None = None) -> torch.Tensor:
     """Resize an NCHW tensor to ``out_hw`` with two float32 matrix products
-    on its device."""
+    on its device; ``rows``: only those output rows (the rows of the H
+    matrix, applied to the whole of ``x``)."""
     _, _, h, w = x.shape
-    mh = torch.from_numpy(resize_matrix(h, out_hw[0], variant, method)).to(x.device)
+    mh = torch.from_numpy(resize_matrix(h, out_hw[0], variant, method)[rows or slice(None)]).to(x.device)
     mw = torch.from_numpy(resize_matrix(w, out_hw[1], variant, method)).to(x.device)
     y = torch.matmul(mh, x.to(torch.float32))
     return torch.matmul(y, mw.t())

@@ -40,6 +40,22 @@ which rank 0 reads and broadcasts (``load_latest``), so a work dir local to
 each host does not split the ranks. In a world of 1 all of it is the
 identity.
 
+Spatial sharding (``train_step(..., spatial=True)`` on a mesh with ``sp``
+> 1, JAX's ``compile_step(batch_sharding=P("dp", "sp"))``): the batch rows
+split over ``dp`` and every batch leaf's image rows over the rank's ``sp``
+sub-group, each at its own resolution (HR, and LR at H / ``sr_scale``);
+the loss runs under ``parallel.mesh.row_split`` (the convs' halo rows and
+the norms' sums over the sub-group, forward and backward) and draws the
+whole image's noise and keeps its rows. Rows split evenly, so the world
+mean of the ranks' losses and gradients is the global batch's, and the
+one all-reduce above needs nothing more. The step runs under
+``kernels_disabled()``, the plain versions of the regions: a kernel pads a
+shard's edges as the image's. JAX's GSPMD gathers the image around its
+opaque Pallas calls there instead; the values are the same. Without
+``spatial``, a mesh with ``sp`` > 1 trains as JAX's ``train_step`` does:
+the batch over ``dp``, replicated over ``sp`` (``fit`` and ``dgmsr-torch
+train`` train so).
+
 Batches are the loader's NHWC numpy trees; ``batch_to_device`` copies them
 through pinned memory without waiting and hands the model NCHW tensors in
 channels_last memory.
@@ -47,6 +63,7 @@ channels_last memory.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -67,11 +84,14 @@ from dgm_img_super_resolution_tpu_torch.parallel.mesh import (
     barrier,
     batch_rows,
     broadcast_object,
+    even_rows,
     is_main,
     make_mesh,
     replicate,
+    row_split,
     shard_batch,
 )
+from dgm_img_super_resolution_tpu_torch.models.layers import kernels_disabled
 from dgm_img_super_resolution_tpu_torch.utils.draws import RowDraws
 from dgm_img_super_resolution_tpu_torch.utils.misc import reduce_metrics, to_device
 from dgm_img_super_resolution_tpu_torch.utils.profiling import trace_annotation
@@ -90,15 +110,17 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
-def _rows_of(v, rows):
-    """``rows`` of a tensor over the global batch, of each in a tuple, or of
-    what a noise hook returns."""
+def _rows_of(v, rows, image=None):
+    """``rows`` of a tensor over the global batch (and with ``image`` =
+    (index, size), that run of an NCHW tensor's image rows), of each in a
+    tuple, or of what a noise hook returns."""
     if isinstance(v, torch.Tensor) and v.ndim >= 1 and v.shape[0] == rows.total:
-        return rows.take(v)
+        v = rows.take(v)
+        return v if image is None or v.ndim != 4 else even_rows(v.shape[2], *image).take(v, 2)
     if isinstance(v, (tuple, list)):
-        return type(v)(_rows_of(u, rows) for u in v)
+        return type(v)(_rows_of(u, rows, image) for u in v)
     if callable(v):
-        return lambda *a: _rows_of(v(*a), rows)
+        return lambda *a: _rows_of(v(*a), rows, image)
     return v
 
 
@@ -214,25 +236,37 @@ class Trainer:
 
     # ------------------------------------------------------------------ step
     def train_step(self, state: TrainState, batch: dict | Shard, generator: torch.Generator | None = None,
-                   **loss_kw) -> tuple[TrainState, dict]:
+                   spatial: bool = False, **loss_kw) -> tuple[TrainState, dict]:
         """One micro-batch: loss and gradients, then the optimizer (which may
         hold the update back) and the EMA. ``batch`` is the loader's NHWC
         tree of the global batch, of which this rank runs its rows, or a
-        ``Shard`` of those rows alone; ``loss_kw`` goes to ``loss_fn`` (a
-        test's ``t`` and ``noise``: a tensor, a tuple of them or a hook,
-        over the global batch, is sliced to the rows). Metrics are the
-        global batch's, and stay on the device."""
+        ``Shard`` of those rows alone; ``spatial`` (a mesh with ``sp`` > 1)
+        also splits every leaf's image rows over ``sp``. ``loss_kw`` goes
+        to ``loss_fn`` (a test's ``t`` and ``noise``: a tensor, a tuple of
+        them or a hook, over the global batch and the whole image, is
+        sliced to the rows). Metrics are the global batch's, and stay on
+        the device."""
         if isinstance(batch, Shard):
             rows, batch = batch.rows, batch.data
         else:
             rows = batch_rows(int(next(iter(batch.values())).shape[0]), self.mesh)
             batch = shard_batch(batch, self.mesh)
-        if rows.split:
-            loss_kw = {k: _rows_of(v, rows) for k, v in loss_kw.items()}
-            generator = RowDraws(generator, rows)
+        image = None
+        if spatial:
+            if self.mesh.sp < 2:
+                raise ValueError(f"a spatial step needs a mesh with sp > 1, not {self.mesh.shape}")
+            image = (self.mesh.sp_rank, self.mesh.sp)  # each NHWC leaf's rows, at its own resolution
+            batch = {k: even_rows(v.shape[1], *image).take(v, 1) if getattr(v, "ndim", 0) == 4 else v
+                     for k, v in batch.items()}
+        if rows.split or spatial:
+            loss_kw = {k: _rows_of(v, rows, image) for k, v in loss_kw.items()}
+            generator = RowDraws(generator, rows, image)
         batch = batch_to_device(batch, self.device)
         params = state.optimizer.params
-        with trace_annotation("loss_and_grad"):
+        with trace_annotation("loss_and_grad"), contextlib.ExitStack() as stack:
+            if spatial:
+                stack.enter_context(row_split(self.mesh, "sp"))
+                stack.enter_context(kernels_disabled())
             loss, metrics = self.loss_fn(state.model, batch, generator, **loss_kw)
             loss.backward()
         grads = [p.grad for p in params]

@@ -7,8 +7,11 @@ and :func:`normal_like` from ``generator``: a ``torch.Generator``, None
 for the whole global batch from its generator and keeps its rows of the
 result, so that every rank of a data-parallel run draws, for each row, the
 number that one process would draw for it (``train/trainer.py`` wraps its
-generator so when it runs a rank's rows). Otherwise the draws are torch's
-own calls, unchanged.
+generator so when it runs a rank's rows). With ``image`` = (index, size) it
+also keeps the index-th of ``size`` equal runs of image rows of an NCHW
+draw, at the draw's own resolution: a rank of a spatial training step
+draws the whole image's noise and keeps its rows. Otherwise the draws are
+torch's own calls, unchanged.
 """
 
 from __future__ import annotations
@@ -20,18 +23,27 @@ import torch
 
 class RowDraws(NamedTuple):
     """``generator``'s draws for a global batch of ``rows.total`` rows,
-    sliced to ``rows`` (a ``parallel.mesh.Rows``: ``total`` and ``take``)."""
+    sliced to ``rows`` (a ``parallel.mesh.Rows``: ``total`` and ``take``),
+    and of an NCHW draw, to the ``image`` = (index, size) run of its rows."""
 
     generator: torch.Generator | None
     rows: Any
+    image: tuple[int, int] | None = None
 
 
 def _split(generator, shape):
     """(the torch generator, the shape to draw, what to keep of it)."""
     shape = tuple(shape)
-    if isinstance(generator, RowDraws):
-        return generator.generator, (generator.rows.total,) + shape[1:], generator.rows.take
-    return generator, shape, None
+    if not isinstance(generator, RowDraws):
+        return generator, shape, None
+    rows, image = generator.rows, generator.image
+    whole = (rows.total,) + shape[1:]
+    if image is None or len(shape) != 4:
+        return generator.generator, whole, rows.take
+    index, size = image
+    h = shape[2]
+    whole = whole[:2] + (h * size,) + whole[3:]
+    return generator.generator, whole, lambda out: rows.take(out)[:, :, index * h:(index + 1) * h]
 
 
 def randint(high: int, shape, generator, device) -> torch.Tensor:

@@ -115,9 +115,10 @@ def served(tmp_path_factory):
             cases[name] = {"hp": dict(TINY, **over), "lr": lr, "noise": noise_paths(key, paths)}
     finally:
         JaxPipeline.upscale_batch_device = orig
-    # port-only cases: a batch the world does not divide, with no budget; the
-    # progress path; tiles of one image as a batch
-    cases["batch_3"] = {"hp": TINY, "lr": lr_batch(5, (3, 8, 8, 3)), "noise": None, "seed": 7}
+    # port-only cases: a batch the world does not divide, with no budget, at 5 LR rows,
+    # which do not split over the ranks either (JAX's rule; 8 rows would split,
+    # test_torch_port_sp.py); the progress path; tiles of one image as a batch
+    cases["batch_3"] = {"hp": TINY, "lr": lr_batch(5, (3, 5, 8, 3)), "noise": None, "seed": 7}
     cases["progress"] = {"hp": TINY, "lr": CASES["batch_4"][1], "noise": cases["batch_4"]["noise"],
                          "progress": True}
     cases["tiles"] = {"hp": TINY, "lr": lr_batch(6, (16, 24, 3)), "noise": None, "seed": 8,
@@ -177,9 +178,9 @@ def test_noise_hook_sees_the_global_batch(served):
 
 
 def test_indivisible_batch_is_replicated_with_the_warning(served):
-    """A batch of 3 on 2 ranks: served whole on each, with JAX's warning,
-    giving the one-process images to the bit; a batch of 4 shards without
-    one."""
+    """A batch of 3 on 2 ranks, whose 5 LR rows do not split evenly either:
+    served whole on each, with JAX's warning, giving the one-process images
+    to the bit; a batch of 4 shards without one."""
     _, world1, ranks = served
     for r in ranks:
         np.testing.assert_array_equal(r["batch_3"]["img"], world1["batch_3"])

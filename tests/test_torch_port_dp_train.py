@@ -19,7 +19,7 @@ runs are made here.
   within 1e-5 of theirs, the parameters and moments at the train-step
   file's bounds over the model's scale).
 - The loader's rows of each global batch, ``reduce_metrics`` and the
-  collectives; ``sp`` > 1 raises.
+  collectives; ``sp`` builds, another axis > 1 raises.
 """
 
 import jax
@@ -259,6 +259,9 @@ def test_collectives_and_reduce_metrics(trained):
 
 
 def test_spatial_axis_raises_on_two_ranks(trained):
+    """``sp`` builds on two ranks (its group is the world's); another axis
+    raises, naming the ROADMAP."""
     *_, ranks = trained
     for r in ranks:
-        assert r["sp_error"] is not None and "sp" in r["sp_error"] and "ROADMAP" in r["sp_error"]
+        assert r["sp_mesh"] == ({"dp": 1, "sp": 2}, r["rank"], True)
+        assert r["sp_error"] is not None and "tp" in r["sp_error"] and "ROADMAP" in r["sp_error"]

@@ -1,6 +1,7 @@
 """``parallel/mesh.py`` in one process, against the JAX package's
 ``parallel/mesh.py``: the mesh spec, ``init_distributed``'s gating, the
-identities of a world of one, the refusal of ``sp``, and ``shard_batch``'s
+identities of a world of one, the ``dp`` and ``sp`` axes' coordinates and
+sub-groups, and ``shard_batch``'s
 rows and warning. The collectives over two ranks are in
 ``test_torch_port_dp_{serve,train}.py``.
 """
@@ -92,13 +93,36 @@ def test_world_of_one_is_the_identity():
 
 @pytest.mark.parametrize("spec", ["dp=2,sp=2", "sp=4", "dp=1,tp=4"])
 def test_axes_other_than_dp_raise(monkeypatch, spec):
-    """Spatial (or any other) sharding is not ported: it raises, naming the
-    ROADMAP item, and is never folded into dp. ``sp=1`` is a dp mesh."""
+    """An axis other than dp and sp raises, naming the ROADMAP, and is never
+    folded into dp; ``sp=1`` is a dp mesh. A mesh with sp builds on every
+    rank: its shape, the rank's (dp, sp) coordinates (the ranks reshaped
+    row-major, as JAX's devices), the sub-groups along each axis that hold
+    the rank, made in one order on every rank, and ``batch_rows`` by the dp
+    coordinate (replicated over sp)."""
     monkeypatch.setattr(pm.dist, "is_initialized", lambda: True)
     monkeypatch.setattr(pm.dist, "get_world_size", lambda: 4)
     monkeypatch.setattr(pm.dist, "get_rank", lambda: 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pm.make_mesh(spec)
+    made = []
+    monkeypatch.setattr(pm.dist, "new_group", lambda ranks: made.append(tuple(ranks)) or tuple(ranks))
+    if "tp" in spec:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pm.make_mesh(spec)
+    else:
+        shape = pm.parse_mesh_shape(spec, 4)
+        for r in range(4):
+            made.clear()
+            monkeypatch.setattr(pm.dist, "get_rank", lambda r=r: r)
+            mesh = pm.make_mesh(spec)
+            dp, sp = (r // 2, r % 2) if spec == "dp=2,sp=2" else (0, r)
+            assert mesh.shape == shape and mesh.rank == r and (mesh.dp_rank, mesh.sp_rank) == (dp, sp)
+            assert pm.batch_rows(4, mesh) == (pm.Rows(2 * dp, 2 * dp + 2, 4) if mesh.dp == 2 else pm.Rows(0, 4, 4))
+            assert pm.even_rows(16, mesh.sp_rank, mesh.sp) == pm.Rows(sp * 16 // mesh.sp, (sp + 1) * 16 // mesh.sp, 16)
+            assert pm.shard_spatial(16, mesh) == pm.Rows(4 * r, 4 * r + 4, 16)
+            if spec == "dp=2,sp=2":
+                assert made == [(0, 2), (1, 3), (0, 1), (2, 3)]
+                assert mesh.dp_group == (sp, sp + 2) and mesh.sp_group == (2 * dp, 2 * dp + 1)
+            else:  # sp spans the world: its group is the world's, and dp has none
+                assert made == [] and mesh.sp_group is mesh.group and mesh.dp_group is None
     assert pm.make_mesh("dp=4,sp=1").shape == {"dp": 4, "sp": 1}
 
 

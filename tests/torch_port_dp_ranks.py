@@ -2,7 +2,7 @@
 group on the CPU, as ``torchrun`` starts it (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``).
 
-    python tests/torch_port_dp_ranks.py serve|train DIR
+    python tests/torch_port_dp_ranks.py serve|train|sp DIR
 
 reads ``DIR/inputs.pt`` (written by the test, which computed the JAX
 references), runs the port's entry points under ``init_distributed()`` and
@@ -199,11 +199,62 @@ def run_train(inp: dict, mesh) -> dict:
     out["replicated"] = pm.replicate({"a": x.clone(), "m": torch.nn.Linear(2, 2)}, mesh)["a"]
     out["reduced"] = reduce_metrics({"loss": torch.tensor(1.0 + mesh.rank), "n": 2 * mesh.rank,
                                      "v": torch.tensor([1.0, 3.0]) * (mesh.rank + 1), "name": "x"}, mesh=mesh)
+    sp = pm.make_mesh("dp=1,sp=2")
+    out["sp_mesh"] = (sp.shape, sp.sp_rank, sp.sp_group is sp.group)
     try:
-        pm.make_mesh("dp=1,sp=2")
+        pm.make_mesh("dp=1,tp=2")
         out["sp_error"] = None
     except NotImplementedError as e:
         out["sp_error"] = str(e)
+    return out
+
+
+# ---------------------------------------------------------------------- sp
+def run_sp(inp: dict, mesh) -> dict:
+    """On the ``inp['mesh_shape']`` mesh: each serve case through
+    ``upscale_batch`` (``as_uint8`` too where asked), with the pipeline's
+    routing; then each case's spatial training steps from the same state."""
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.inference import ChunkNoise, SRDiffPipeline
+    from dgm_img_super_resolution_tpu_torch.models.factory import build_srdiff
+    from dgm_img_super_resolution_tpu_torch.models.param_transforms import apply_weight_norm
+    from dgm_img_super_resolution_tpu_torch.parallel import mesh as pm
+    from dgm_img_super_resolution_tpu_torch.train.tasks.srdiff import SRDiffTask
+    from dgm_img_super_resolution_tpu_torch.train.trainer import Trainer
+
+    spec = inp["mesh_shape"]
+    mesh = pm.make_mesh(spec)
+    out: dict = {"rank": mesh.rank, "mesh": mesh.shape, "coords": (mesh.dp_rank, mesh.sp_rank)}
+    records = _Records()
+    logging.getLogger("dgm_img_super_resolution_tpu_torch").addHandler(records)
+    for name, case in inp["serve"].items():
+        pipe = SRDiffPipeline(Hparams(case["hp"]), params=case["state_dict"], device="cpu", mesh=mesh)
+        noise = None if case["noise"] is None else ChunkNoise(lambda path, shape, _n=case["noise"]: _n[path])
+        lr = case["lr"]
+        gen = lambda: torch.Generator().manual_seed(case.get("seed", 0))  # noqa: E731
+        seen = []
+        records.messages.clear()
+        cb = (lambda d, t: seen.append((d, t))) if case.get("progress") else None
+        got = {"img": pipe.upscale_batch(lr, generator=gen(), noise=noise, progress_cb=cb, callback_steps=2),
+               "spatial": pipe._spatial_serving(lr.shape[0], lr.shape[1]), "progress": seen,
+               "warnings": list(records.messages)}
+        if case.get("uint8"):
+            got["uint8"] = pipe.upscale_batch_device(lr, generator=gen(), noise=noise, as_uint8=True).numpy()
+        out[name] = got
+
+    for name, case in inp["train"].items():
+        chp = Hparams(dict(inp["train_hp"], **case["hp"]))
+        model = build_srdiff(chp)
+        apply_weight_norm(model.denoise_fn)
+        model.load_state_dict(inp["train_state_dict"])
+        tr = Trainer(chp, SRDiffTask(chp, model).loss_fn, init_params_fn=lambda seed, _m=model: _m, device="cpu",
+                     work_dir=str(Path(inp["work"]) / "sp_train"), mesh=mesh)
+        state, gen, metrics = tr.init_state(), torch.Generator().manual_seed(11), []
+        for i, batch in enumerate(case["batches"]):
+            kw = {} if case["draws"] is None else {"t": case["draws"][i][0], "noise": case["draws"][i][1]}
+            state, m = tr.train_step(state, batch, gen, spatial=True, **kw)
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[f"train_{name}"] = {"metrics": metrics, **_snapshot(state)}
     return out
 
 
@@ -217,7 +268,7 @@ def main(mode: str, work: str) -> None:
     mesh = make_mesh()
     work_dir = Path(work)
     inp = torch.load(work_dir / "inputs.pt", weights_only=False)
-    out = {"serve": run_serve, "train": run_train}[mode](inp, mesh)
+    out = {"serve": run_serve, "train": run_train, "sp": run_sp}[mode](inp, mesh)
     out["backend"] = dist.get_backend()
     torch.save(out, work_dir / f"rank{mesh.rank}.pt")
     dist.destroy_process_group()
