@@ -181,6 +181,28 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    dp and the image rows over sp, against world 1 (``phase_dp``'s bounds),
    every rank equal. Timed in turns against world 1: the batch-1 p50, the
    bf16 step, and a UNet step's halo exchanges (count and ms).
+18. The captured paths (``phase_graphs``, ``core/graphs.py``). Every phase
+   above that serves or trains at world 1 runs through the captured CUDA
+   graphs (the first call of a shape eager, then replays), and its launch
+   counts are the replays' captured counts. That these are what a replay
+   launches is checked on the card: phase 3 (each configuration) and this
+   phase (each path) trace one eager call and one replay under
+   ``torch.profiler`` and hold the replay's kernels, by the ``__global__``
+   names of the port's CUDA sources, and the counts the cache added,
+   against the eager call's kernels and the counts its wrappers made at
+   launch (the T = 100 serve against five times the batch-1 ddim20
+   serve's: the profiler loses records of an eager call that long). Here
+   each path is replayed against ``graphs.eager()`` at the same generator
+   state: the default
+   uint8 SRDiff serve at batch 8 and 1 and the T = 100 ancestral serve at
+   batch 1 (bit-equal, 20 or 100 launches of rows 1-3 a replay), the SD
+   serve at LR 128 and 256 (bit-equal, 0 or 120 flash launches), three
+   SRDiff training steps at batch 64 of 160^2 in bf16 with accumulation 2
+   (the parameters and the EMA bit-equal; a state rewound in place replays
+   all three graphs) and one WGAN-GP round (compared under cuDNN's
+   deterministic algorithms); each timed in turns (eager s and replayed s a
+   call), with its capture s and the bytes its graphs added to the cache's
+   shared pool.
 
 Any failure exits non-zero. The line before the last is the kernel table
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -194,6 +216,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1207,6 +1230,67 @@ def _read_counts(counters) -> dict:
     return got
 
 
+def port_kernel_names() -> tuple[str, ...]:
+    """The ``__global__`` functions of the port's CUDA sources."""
+    names = set()
+    for src in sorted(Path(KERNEL_SRC).glob("*.cu*")):
+        names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", src.read_text()))
+    return tuple(sorted(names))
+
+
+def traced_port_kernels(run) -> dict[str, int]:
+    """``run()`` under ``torch.profiler``: how many times each of the port's
+    kernels ran on the card, by its ``__global__`` name. A replayed graph's
+    kernels show here as an eager call's do."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pat = re.compile(r"(?<![A-Za-z0-9_])(" + "|".join(port_kernel_names()) + r")(?![A-Za-z0-9_])")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the device's activity alone: quick to read
+        run()
+        torch.cuda.synchronize()
+    out: dict[str, int] = {}
+    for a in prof.key_averages():
+        m = pat.search(a.key) if a.device_type == DeviceType.CUDA else None
+        if m:
+            out[m.group(1)] = out.get(m.group(1), 0) + a.count
+    return out
+
+
+def replay_trace_check(label, run, counters, failures, eager_ref=None) -> dict:
+    """``run()`` (a call whose graph is captured) traced once under
+    ``graphs.eager()``, where each wrapper counts where it launches, and
+    once replayed, where the cache adds the capture's counts. Fails unless
+    the replay ran the same port kernels as many times as the eager call,
+    the cache added the counts the wrappers made, and a call that counted
+    launches shows kernels in its trace. ``eager_ref`` (``{"kernels_eager":
+    ..., "counts_eager": ...}``) stands for the eager call where its trace
+    is too long to trust: the profiler lost 2 of the port's 1000 kernel
+    records of one eager T = 100 serve (some 180k launches; its replay's
+    trace had them all)."""
+    from dgm_img_super_resolution_tpu_torch.core import graphs
+
+    def eager():
+        with graphs.eager():
+            run()
+
+    out = dict(eager_ref or {})
+    for path, fn in (() if eager_ref else (("eager", eager),)) + (("replay", run),):
+        _reset_counts(counters)
+        out[f"kernels_{path}"] = traced_port_kernels(fn)
+        out[f"counts_{path}"] = {k: v for k, v in _read_counts(counters).items() if v}
+    ok = (out["kernels_replay"] == out["kernels_eager"] and out["counts_replay"] == out["counts_eager"]
+          and bool(out["kernels_eager"]) == bool(out["counts_eager"]))
+    print(f"{label}: traced port kernels a replay {out['kernels_replay']}, an eager call {out['kernels_eager']}; "
+          f"counts {'as the eager call' if out['counts_replay'] == out['counts_eager'] else 'DIFFER'} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"{label}: a replay's traced kernels or counts are not the eager call's: {out}")
+    return out
+
+
 def _serve(pipe, imgs, counters):
     """One timed serve with every launch counter set to 0 just before it;
     (output, seconds, launches)."""
@@ -1257,10 +1341,13 @@ def phase_pipeline(rows):
     failures, res, outs = [], {}, {}
     for cfg, env in dict(CONFIGS, cudnn=CUDNN_ENV).items():
         with switches(**env):
-            pipe.upscale_batch_device(imgs, as_uint8=True)  # warm-up
+            pipe.upscale_batch_device(imgs, as_uint8=True)  # warm-up: the first call, then the capture
             torch.cuda.reset_peak_memory_stats()
             out, dt, launches = _serve(pipe, imgs, counters)
-        by_shape = dict(counters["block_chain3"].launches_by_shape)
+            by_shape = dict(counters["block_chain3"].launches_by_shape)
+            peak, reserved = torch.cuda.max_memory_allocated() / 2**30, torch.cuda.max_memory_reserved() / 2**30
+            traced = replay_trace_check(f"config {cfg}", lambda: pipe.upscale_batch_device(imgs, as_uint8=True),
+                                        counters, failures)
         launches = {k: v for k, v in launches.items() if v}
         if launches != SERVE_LAUNCHES.get(cfg, {}):  # the cuDNN serve launches none of the port's kernels
             failures.append(f"config {cfg}: launches {launches}, expected {SERVE_LAUNCHES.get(cfg, {})}")
@@ -1282,11 +1369,11 @@ def phase_pipeline(rows):
                     if name == row["name"]:
                         row[attr] = launches.get(key, 0)
         outs[cfg] = out
-        res[cfg] = {"img_per_s": 8 / dt, "batch8_s": dt, "launches": launches,
-                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-                    "out_mean": float(out.float().mean())}
+        res[cfg] = {"img_per_s": 8 / dt, "batch8_s": dt, "launches": launches, "peak_mem_gib": peak,
+                    "peak_reserved_gib": reserved, "out_mean": float(out.float().mean()), "traced": traced}
         print(f"pipeline ddim20 eta=1 bf16 B=8 128->512, config {cfg} {env}: {8 / dt:.2f} img/s "
-              f"({dt:.3f} s/batch), peak {res[cfg]['peak_mem_gib']:.2f} GiB, launches {launches}"
+              f"({dt:.3f} s/batch), peak {peak:.2f} GiB allocated, {reserved:.2f} GiB reserved (the graph pools "
+              f"included), launches {launches}"
               + (f", wide chain by (C, H, W) {wide}" if cfg == "C" else ""), flush=True)
     for cfg in CONFIGS:
         # bf16 rounds at other places in each configuration: the mean and
@@ -3690,10 +3777,12 @@ def _gan_state_into(dst, src):
     state deep-copied: on one device ``load_state_dict`` would share it)."""
     import copy
 
+    from dgm_img_super_resolution_tpu_torch.train.trainer import adam_state_dict, load_adam_state
+
     dst.gen.load_state_dict(src.gen.state_dict())
     dst.disc.load_state_dict(src.disc.state_dict())
-    dst.gen_opt.load_state_dict(copy.deepcopy(src.gen_opt.state_dict()))
-    dst.disc_opt.load_state_dict(copy.deepcopy(src.disc_opt.state_dict()))
+    load_adam_state(dst.gen_opt, copy.deepcopy(adam_state_dict(src.gen_opt)))
+    load_adam_state(dst.disc_opt, copy.deepcopy(adam_state_dict(src.disc_opt)))
 
 
 def _gan_round_card_vs_cpu(kind, dev, res, failures):
@@ -4067,6 +4156,307 @@ def phase_sampler_api(dev="cuda"):
     return res, failures
 
 
+# phase_graphs: each captured path replayed against its eager run (graphs.eager()) at the same generator
+# state, and both timed in turns. The bar is bit-equality; where two eager runs already differ (a
+# non-deterministic kernel), the phase names it and holds the replay at GRAPH_NONDET_REL (the bf16 kernel
+# bound). The WGAN-GP round is compared under cuDNN's deterministic algorithms: with its default ones
+# (weight gradients summed by atomics) two eager rounds differ, and Adam moves each zero-gradient conv bias
+# by that noise.
+GRAPH_ROUNDS = {"srdiff_b8": 4, "srdiff_b1": 4, "srdiff_t100_b1": 2, "sd_lr128": 2, "sd_lr256": 2, "train": 3,
+                "wgan_gp": 4}
+GRAPH_TRAIN_STEPS, GRAPH_TRAIN_ACC = 3, 2
+GRAPH_NONDET_REL = 3e-2
+
+
+def _graph_turns(run, rounds):
+    """``run()`` timed in turns, eager (``graphs.eager()``) and replayed:
+    e r r e e r ...; (eager s, replayed s) per call."""
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.core import graphs
+
+    out = {True: [], False: []}
+    for i in range(rounds):
+        for eager in ((True, False) if i % 2 == 0 else (False, True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with graphs.eager() if eager else contextlib.nullcontext():
+                run()
+            torch.cuda.synchronize()
+            out[eager].append(time.perf_counter() - t0)
+    return out[True], out[False]
+
+
+def _graph_report(label, entries, first_s, eager_s, replay_s, launches, want, same, nondet, failures) -> dict:
+    """Print and check one path: equality (or the named non-determinism),
+    the launches of one replay, the times, the path's captures and pools."""
+    capture_s = sum(e.capture_s for e in entries)
+    pool = sum(e.pool_bytes for e in entries)
+    equal_ok = same is True or (nondet is not None and same <= GRAPH_NONDET_REL)
+    ok = equal_ok and launches == want
+    spread = lambda xs: f"{median(xs):.4f} s ({min(xs):.4f}-{max(xs):.4f})"  # noqa: E731
+    eq = "bit-equal" if same is True else f"max rel {same:.3e} (bound {GRAPH_NONDET_REL}; not deterministic: {nondet})"
+    print(f"graphs {label}: replay vs eager {eq}{'' if equal_ok else ' FAIL'}; eager {spread(eager_s)}, replayed "
+          f"{spread(replay_s)} a call (x{median(eager_s) / median(replay_s):.2f}); first call {first_s:.3f} s with "
+          f"capture {capture_s:.3f} s of {len(entries)} graph(s), pool {pool / 2**20:.1f} MiB; launches a replay "
+          f"{launches} {'ok' if launches == want else f'FAIL (expected {want})'}", flush=True)
+    if not ok:
+        failures.append(f"graphs {label}: replay vs eager {same}, launches {launches} (expected {want})")
+    return {"equal": same is True, "max_rel": None if same is True else same, "nondeterministic": nondet,
+            "eager_s": eager_s, "replay_s": replay_s, "first_call_s": first_s, "capture_s": capture_s,
+            "graphs": len(entries), "pool_bytes": pool, "launches_per_replay": launches}
+
+
+def _tree_rel(a: list, b: list) -> float:
+    """max over tensors of max |a - b| / max |b|."""
+    return max(float((x.float() - y.float()).abs().max()) / max(float(y.float().abs().max()), 1e-30)
+               for x, y in zip(a, b))
+
+
+def _compare(want, again, got, what) -> tuple:
+    """(True or the max rel of replay vs eager, None or what makes two eager
+    runs differ)."""
+    import torch
+
+    nondet = None if all(torch.equal(a, b) for a, b in zip(want, again)) else \
+        f"{what} (two eager runs differ by max rel {_tree_rel(again, want):.3e})"
+    return (True if all(torch.equal(a, b) for a, b in zip(got, want)) else _tree_rel(got, want)), nondet
+
+
+def _graph_serve(label, pipe, imgs, steps_scale, rounds, counters, failures, eager_ref=None) -> dict:
+    """An SRDiff serve of ``imgs`` (uint8): first call (eager, then the
+    capture), replay vs eager at one generator state, one replay's
+    launches, the times in turns, a replay's and an eager call's kernels
+    traced (``eager_ref`` as in :func:`replay_trace_check`)."""
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.core import graphs
+
+    def serve(seed=0):
+        return pipe.upscale_batch_device(imgs, generator=torch.Generator(device="cuda").manual_seed(seed),
+                                         as_uint8=True)
+
+    before = set(pipe._graphs.entries)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    got = serve(7)
+    with graphs.eager():
+        want, again = serve(7), serve(7)
+    same, nondet = _compare([want], [again], [got], "the eager serve")
+    _reset_counts(counters)
+    serve()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _read_counts(counters).items() if v}
+    want_l = {k: v * steps_scale for k, v in SERVE_LAUNCHES["default"].items()}
+    eager_s, replay_s = _graph_turns(serve, rounds)
+    entries = [e for k, e in pipe._graphs.entries.items() if k not in before]
+    out = _graph_report(label, entries, first, eager_s, replay_s, launches, want_l, same, nondet, failures)
+    out["traced"] = replay_trace_check(f"graphs {label}", serve, counters, failures, eager_ref)
+    return out
+
+
+def _rewind_train(state, start):
+    """A training state back to its start in place (the tensors its graphs
+    read stay): the parameters and the EMA, Adam's moments and counts at 0,
+    the gradient buffers, the host's counts."""
+    import torch
+
+    opt = state.optimizer
+    with torch.no_grad():
+        for p, v in zip(state.model.parameters(), start):
+            p.copy_(v)
+        for e, v in zip(state.ema.values(), start):
+            e.copy_(v)
+        for st in opt.adam.state.values():
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                st[key].zero_()
+        for b in opt.bufs:
+            if b is not None:
+                b.zero_()
+    opt.updates = opt.mini_step = state.step = 0
+
+
+def _rewind_gan(state, start):
+    """A GAN state back to ``start``'s models in place, Adam's moments and
+    counts at 0."""
+    state.gen.load_state_dict(start.gen.state_dict())
+    state.disc.load_state_dict(start.disc.state_dict())
+    for opt in (state.gen_opt, state.disc_opt):
+        for st in opt.state.values():
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                st[key].zero_()
+    state.step = 0
+
+
+def _graph_train(counters, failures) -> dict:
+    """Three SRDiff training steps eager twice and replayed: a third state
+    takes the steps once (the first calls and the captures), goes back to
+    its start in place and takes them again by replay."""
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.core import graphs
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.train.tasks.srdiff import SRDiffTask
+
+    hp = Hparams(**dict(TRAIN_HP, accumulate_grad_batches=GRAPH_TRAIN_ACC, ema_decay=0.999))
+    batches = [_train_batch(TRAIN_BATCH, TRAIN_HR, seed=90 + i) for i in range(GRAPH_TRAIN_STEPS)]
+
+    def train(trainer, state, eager):
+        _reset_counts(counters)
+        t0 = time.perf_counter()
+        with graphs.eager() if eager else contextlib.nullcontext():
+            for i, b in enumerate(batches):
+                trainer.train_step(state, b, torch.Generator(device="cuda").manual_seed(i))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, {k: v for k, v in _read_counts(counters).items() if v}
+
+    def trained(state):
+        return [p.detach().clone() for p in state.model.parameters()] + [v.clone() for v in state.ema.values()]
+
+    runs = []
+    for _ in range(2):
+        trainer = SRDiffTask(hp).make_trainer()
+        state = trainer.init_state()
+        eager_l = train(trainer, state, True)[1]
+        runs.append(trained(state))
+    del trainer, state
+    trainer = SRDiffTask(hp).make_trainer()
+    state = trainer.init_state()
+    start = [p.detach().clone() for p in state.model.parameters()]
+    first = train(trainer, state, False)[0]
+    _rewind_train(state, start)
+    graph_l = train(trainer, state, False)[1]
+    same, nondet = _compare(runs[0], runs[1], trained(state), "the eager step")
+    if graph_l != eager_l:
+        failures.append(f"graphs train: launches over {GRAPH_TRAIN_STEPS} steps {graph_l}, eager {eager_l}")
+    del runs, start
+    _reset_counts(counters)
+    trainer.train_step(state, batches[0])  # generator None: its own capture, outside the timed turns
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _read_counts(counters).items() if v}
+    eager_s, replay_s = _graph_turns(lambda: trainer.train_step(state, batches[0]), 2 * GRAPH_ROUNDS["train"])
+    out = _graph_report(f"SRDiff training step B={TRAIN_BATCH} {TRAIN_HR}^2 bf16, accumulate {GRAPH_TRAIN_ACC}, "
+                        f"{GRAPH_TRAIN_STEPS} steps", list(state.optimizer.graphs.entries.values()), first, eager_s,
+                        replay_s, launches, train_step_launches("default"), same, nondet, failures)
+    out["launches_3_steps"] = graph_l
+    out["traced"] = replay_trace_check("graphs SRDiff training step", lambda: trainer.train_step(state, batches[0]),
+                                       counters, failures)
+    return out
+
+
+def _graph_wgan(counters, failures) -> dict:
+    """One WGAN-GP round (float32) eager twice and replayed as the training
+    steps, compared under cuDNN's deterministic algorithms, timed under its
+    defaults."""
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.core import graphs
+
+    task = _edu_task("wgan-gp", "cuda")
+    real = task._real(_edu_batch("wgan-gp", EDU_BATCH, seed=3))
+
+    def round_(st, eager):
+        t0 = time.perf_counter()
+        with graphs.eager() if eager else contextlib.nullcontext():
+            task.train_step(st, real, torch.Generator(device="cuda").manual_seed(3))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def flat(st):
+        return [v.clone() for v in list(st.gen.state_dict().values()) + list(st.disc.state_dict().values())]
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for _ in range(2):
+            st = task.init_state(0)
+            round_(st, True)
+            runs.append(flat(st))
+        gstate = task.init_state(0)
+        first = round_(gstate, False)
+        _rewind_gan(gstate, task.init_state(0))
+        round_(gstate, False)
+        same, nondet = _compare(runs[0], runs[1], flat(gstate), "the eager round")
+        entries = list(gstate.graphs.entries.values())
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    task.train_step(gstate, real)  # the default algorithms' capture, outside the timed turns
+    eager_s, replay_s = _graph_turns(lambda: task.train_step(gstate, real), GRAPH_ROUNDS["wgan_gp"])
+    out = _graph_report(f"WGAN-GP round B={EDU_BATCH} f32 ({task.crit_repeats} critic updates + 1; compared under "
+                        "cudnn.deterministic, timed without)", entries, first, eager_s, replay_s, {}, {}, same,
+                        nondet, failures)
+    out["traced"] = replay_trace_check("graphs WGAN-GP round", lambda: task.train_step(gstate, real), counters,
+                                       failures)
+    return out
+
+
+def phase_graphs(card):
+    """The captured paths (``core/graphs.py``): the default uint8 SRDiff
+    serve at batch 8 and 1 (128 -> 512, bf16, ddim20 eta 1), the T = 100
+    ancestral serve at batch 1, the SD serve at LR 128 and 256, three
+    SRDiff training steps (batch 64 of 160^2, bf16, accumulate 2) and one
+    WGAN-GP round, each replayed against ``graphs.eager()`` at the same
+    generator state and timed in turns; the launches of one replay against
+    the serve's counts."""
+    import numpy as np
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.core import graphs
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.inference import SRDiffPipeline
+    from dgm_img_super_resolution_tpu_torch.models.sd.pipeline import StableDiffusionUpscalePipeline
+
+    t_phase = time.perf_counter()
+    counters = _counters()
+    failures, res = [], {"card": card}
+    imgs = np.random.default_rng(0).integers(0, 256, (8, 128, 128, 3), dtype=np.uint8)
+    pipe = SRDiffPipeline(Hparams(sampler="ddim", sample_timesteps=20, ddim_eta=1.0, compute_dtype="bfloat16"))
+    res["srdiff_b8"] = _graph_serve("SRDiff ddim20 eta 1 bf16 uint8 B=8 128->512", pipe, imgs, 1,
+                                    GRAPH_ROUNDS["srdiff_b8"], counters, failures)
+    res["srdiff_b1"] = _graph_serve("SRDiff ddim20 eta 1 bf16 uint8 B=1 128->512", pipe, imgs[:1], 1,
+                                    GRAPH_ROUNDS["srdiff_b1"], counters, failures)
+    anc = SRDiffPipeline(Hparams(sampler="ddpm", compute_dtype="bfloat16"), params=pipe.model.state_dict())
+    del pipe
+    # the ancestral chain's eager trace: the ddim20 serve's at batch 1, 100 UNet steps instead of 20
+    b1 = res["srdiff_b1"]["traced"]
+    t100_ref = {key: {k: 5 * v for k, v in b1[key].items()} for key in ("kernels_eager", "counts_eager")}
+    res["srdiff_t100_b1"] = _graph_serve("SRDiff T=100 ancestral bf16 uint8 B=1 128->512", anc, imgs[:1], 5,
+                                         GRAPH_ROUNDS["srdiff_t100_b1"], counters, failures, t100_ref)
+    del anc
+    torch.cuda.empty_cache()
+
+    sd = StableDiffusionUpscalePipeline()
+    for lr in (128, 256):
+        def serve(seed=0, lr=lr):
+            return _sd_serve(sd, lr, GN_STEPS, generator=torch.Generator(device="cuda").manual_seed(seed))
+
+        _, first, _ = serve()
+        got = serve(7)[0]
+        with graphs.eager():
+            want, again = serve(7)[0], serve(7)[0]
+        same, nondet = _compare([want], [again], [got], "the eager serve")
+        launches = {k: v for k, v in serve()[2].items() if v}
+        eager_s, replay_s = _graph_turns(serve, GRAPH_ROUNDS[f"sd_lr{lr}"])
+        res[f"sd_lr{lr}"] = _graph_report(f"SD x4 ddim20 guidance 9 bf16 LR {lr} -> {4 * lr}",
+                                          list(sd._graphs.entries.values()), first, eager_s, replay_s, launches,
+                                          {"flash_attention": 120} if lr == 256 else {}, same, nondet, failures)
+        res[f"sd_lr{lr}"]["traced"] = replay_trace_check(f"graphs SD LR {lr}", serve, counters, failures)
+        sd._graphs.clear()  # this size's pool back before the next
+        torch.cuda.empty_cache()
+    del sd
+    torch.cuda.empty_cache()
+    res["train"] = _graph_train(counters, failures)
+    torch.cuda.empty_cache()
+    res["wgan_gp"] = _graph_wgan(counters, failures)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"graphs phase {res['phase_s']:.1f} s", flush=True)
+    return res, failures
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None, help="directory for the full results")
@@ -4113,7 +4503,9 @@ def main() -> int:
     sampler_api, f12 = phase_sampler_api()
     edu, f13 = phase_edu(rows, card)
     native, f14 = phase_native(card)
-    failures += f3 + f3c + f3b + f4 + f4b + f5 + f6 + f7 + f7b + f9 + f10 + f8 + f11 + f15 + f16 + f12 + f13 + f14
+    graphs_res, f17 = phase_graphs(card)
+    failures += (f3 + f3c + f3b + f4 + f4b + f5 + f6 + f7 + f7b + f9 + f10 + f8 + f11 + f15 + f16 + f12 + f13 + f14
+                 + f17)
     missing = [row["name"] for row in rows if row["launches"] is None]
     if missing:
         failures.append(f"no launch count for {missing}")
@@ -4123,7 +4515,7 @@ def main() -> int:
             {"card": card, "kernels": rows, "pipeline": pipe, "serving_paths": paths, "bf16_forward": fwd16,
              "card_vs_cpu": e2e, "backward": bwd, "sd": sd, "sd_options": sd_opts, "checkpoint_cli": ckpt_cli,
              "sd_local_checkpoint": sd_local, "sd_card_vs_cpu": sd_e2e, "train": train, "dp": dp, "sp": sp,
-             "sampler_api": sampler_api, "edu": edu, "native": native, "failures": failures},
+             "sampler_api": sampler_api, "edu": edu, "native": native, "graphs": graphs_res, "failures": failures},
             indent=1))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

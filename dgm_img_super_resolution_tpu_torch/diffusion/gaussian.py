@@ -140,7 +140,7 @@ class GaussianDiffusion(nn.Module):
         cond = self.denoise_fn.project(cond, img_lr_up)
         x = hook(None).to(img_lr_up.device, torch.float32)
         if not self.res:
-            t0 = torch.full((shape[0],), self.num_timesteps - 1, dtype=torch.long)
+            t0 = torch.full((shape[0],), self.num_timesteps - 1, dtype=torch.long, device=img_lr_up.device)
             x = self.q_sample(img_lr_up, t0, x)
         return x, cond, rrdb_out, hook
 

@@ -15,9 +15,25 @@ sampler call: a batch over it is served in equal sub-batches of
 its final image, then sliced), and an image that alone exceeds it (and is
 larger than ``infer_patch_size``) is served in feathered tiles
 (``upscale_large``). ``upscale`` routes such an image to the tiles by
-itself. ``progress_cb(done, total)`` fires every ``callback_steps`` sampler
+itself. On the card a sampler call's graph keeps that call's working set
+in its cache's memory pool, which the cache's graphs share: the budget
+bounds the largest of them, as it bounds an eager call's peak.
+``progress_cb(done, total)`` fires every ``callback_steps`` sampler
 steps, counted across the chunks and images of a request; that path runs
 the exact sampler (``enc_interval`` 1), as JAX's does.
+
+One program (JAX ``inference.py:93 _sample_fn``). At world 1, without a
+progress callback, a sampler call is one program from the LR batch on the
+card to the SR batch (``_program``): pad, bicubic, the RRDB and the cond
+projection, every sampler step, ``res2img``, the uint8 rounding. On the
+card it is captured as one CUDA graph per call shape and static arguments
+(``core/graphs.py``; the key: batch, LR size, input dtype, ``as_uint8``,
+sampler, steps, eta, ``enc_interval``, the noise's shapes, the kernel
+routing), replayed from the second call on; sub-batches and tiles replay
+their chunk's graph. These stay eager by design: the progress path (its
+callback runs on the host between segments), a world above 1 (gloo's
+collectives run through the host), a noise hook that is a callable, and
+everything under ``graphs.eager()`` or on the CPU.
 
 Noise. A request served in one call takes a noise hook (see
 ``diffusion/gaussian.py``) or draws from a generator. A request served in
@@ -71,11 +87,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dgm_img_super_resolution_tpu_torch.core import graphs
 from dgm_img_super_resolution_tpu_torch.core.config import Hparams
 from dgm_img_super_resolution_tpu_torch.core.device import resolve_device
 from dgm_img_super_resolution_tpu_torch.diffusion.gaussian import as_noise_hook
 from dgm_img_super_resolution_tpu_torch.models.factory import build_srdiff, init_srdiff_params
-from dgm_img_super_resolution_tpu_torch.models.layers import kernels_disabled
+from dgm_img_super_resolution_tpu_torch.models.layers import kernels_disabled, routing_key
 from dgm_img_super_resolution_tpu_torch.ops.image import (
     extract_patches,
     extract_tiles,
@@ -166,6 +183,7 @@ class SRDiffPipeline:
             self.model.to(memory_format=torch.channels_last)
         replicate(self.model, self.mesh)
         self.generator = generator or torch.Generator(device=self.device).manual_seed(int(self.hp["seed"]))
+        self._graphs = graphs.GraphCache()  # the captured serves, by call shape
 
     def _pad(self, h: int, w: int) -> tuple[int, int]:
         """LR pad that makes the HR grid divide by 2^(stages - 1)."""
@@ -247,11 +265,17 @@ class SRDiffPipeline:
         return self._serve(x, gen, as_uint8, noise, progress_cb, callback_steps)
 
     def _serve(self, x, gen, as_uint8, noise, progress_cb, callback_steps) -> torch.Tensor:
-        """One sampler call over the whole batch: this rank's rows of it, or
-        of its images' rows, then the whole batch gathered."""
+        """One sampler call over the whole batch: at world 1 without a
+        progress callback one program (:meth:`_program`); else this rank's
+        rows of it, or of its images' rows, then the whole batch gathered."""
         n, h, w = (int(v) for v in x.shape[:3])
         ph, pw = self._pad(h, w)
         scale = self.hp["sr_scale"]
+        hr = ((h + ph) * scale, (w + pw) * scale)
+        if isinstance(noise, ChunkNoise):
+            noise = noise.hook((n, 3) + hr)
+        if self.mesh.world == 1 and progress_cb is None:
+            return self._program(x.to(self.device), gen, noise, as_uint8)
         # JAX's fast path also wants the unpadded rows to split (inference.py:350)
         fast_ok = progress_cb is not None or ph == 0 or spatial_shardable(h, self.mesh)
         spatial = fast_ok and self._spatial_serving(n, h + ph)
@@ -260,15 +284,7 @@ class SRDiffPipeline:
                            "by 2^(stages - 1) = %d, as the UNet's Downsamples need", h + ph, self.mesh.world,
                            (h + ph) * scale // self.mesh.world, 2 ** (len(self.hp.unet_dim_mults_tuple) - 1))
         rows = batch_rows(n, self.mesh)
-        x = (x if spatial else shard_batch(x, self.mesh)).to(self.device)
-        x = uint8_to_pm1(x) if x.dtype == torch.uint8 else x.to(torch.float32)
-        x = x.permute(0, 3, 1, 2)
-        if ph or pw:
-            mode = "reflect" if ph < h and pw < w else "replicate"
-            x = F.pad(x, (0, pw, 0, ph), mode=mode)
-        hr = ((h + ph) * scale, (w + pw) * scale)
-        if isinstance(noise, ChunkNoise):
-            noise = noise.hook((n, 3) + hr)
+        x = self._lr_in((x if spatial else shard_batch(x, self.mesh)).to(self.device))
         if spatial:
             # every rank holds the whole LR batch: its rows of the bicubic, of the LR and of the noise
             hr_rows = shard_spatial(hr[0], self.mesh)
@@ -289,10 +305,57 @@ class SRDiffPipeline:
             img = self._sample(x, img_lr_up, gen, noise, progress_cb, callback_steps)
         out = (img * 0.5 + 0.5).clamp(0.0, 1.0)
         out = gather_image_rows(out, hr_rows, self.mesh) if spatial else gather_rows(out, rows, self.mesh)
+        return self._sr_out(out, h, w, as_uint8)
+
+    def _program(self, x, gen, noise, as_uint8: bool) -> torch.Tensor:
+        """The serve of one batch on this card as one program, JAX's
+        ``_sample_fn`` (``inference.py:93``): on the card one captured CUDA
+        graph per call shape (``core/graphs.py``), replayed from the second
+        call on; eager on the CPU, under ``graphs.eager()``, and for a noise
+        hook that is not tensors (a callable)."""
+        noise_in = {} if noise is None else graphs.tensor_inputs("noise", noise)
+        if not graphs.enabled(self.device) or noise_in is None:
+            return self._serve_fn(x, gen, noise, as_uint8)
+        hp = self.hp
+        key = ("serve", tuple(x.shape), x.dtype, as_uint8, graphs.signature(noise), hp.get("sampler", "ddpm"),
+               hp.get("sample_timesteps", 0), float(hp.get("ddim_eta", 0.0)), int(hp.get("enc_interval", 1) or 1),
+               routing_key())
+
+        def fn(inputs, g):
+            return self._serve_fn(inputs["x"], g, None if noise is None else graphs.rebuild("noise", noise, inputs),
+                                  as_uint8)
+
+        return self._graphs.run(key, fn, {"x": x, **noise_in}, gen)
+
+    def _serve_fn(self, x, gen, noise, as_uint8: bool) -> torch.Tensor:
+        """What :meth:`_program` runs: the NHWC LR batch on the device ->
+        [-1, 1], padded, its bicubic, the sampler, the image in [0, 1]
+        cropped back (and rounded to uint8)."""
+        h, w = (int(v) for v in x.shape[1:3])
+        x = self._lr_in(x)
+        img_lr_up = resize(x, tuple(v * self.hp["sr_scale"] for v in x.shape[2:]), variant="torch")
+        img = self._sample(x, img_lr_up, gen, noise, None, 1)
+        return self._sr_out((img * 0.5 + 0.5).clamp(0.0, 1.0), h, w, as_uint8)
+
+    def _lr_in(self, x) -> torch.Tensor:
+        """The NHWC uint8 [0, 255] or float [-1, 1] LR batch -> NCHW float32
+        in [-1, 1], padded (reflect, or edge when the pad reaches the image's
+        size)."""
+        h, w = (int(v) for v in x.shape[1:3])
+        ph, pw = self._pad(h, w)
+        x = uint8_to_pm1(x) if x.dtype == torch.uint8 else x.to(torch.float32)
+        x = x.permute(0, 3, 1, 2)
+        if ph or pw:
+            mode = "reflect" if ph < h and pw < w else "replicate"
+            x = F.pad(x, (0, pw, 0, ph), mode=mode)
+        return x
+
+    def _sr_out(self, out, h: int, w: int, as_uint8: bool) -> torch.Tensor:
+        """The NCHW SR batch in [0, 1] cropped to ``h`` x ``w`` LR pixels,
+        NHWC (uint8 with ``as_uint8``)."""
+        scale = self.hp["sr_scale"]
         out = out[:, :, : h * scale, : w * scale].permute(0, 2, 3, 1)
-        if as_uint8:
-            out = torch.round(out * 255.0).to(torch.uint8)
-        return out
+        return torch.round(out * 255.0).to(torch.uint8) if as_uint8 else out
 
     def _sample(self, x, img_lr_up, gen, noise, progress_cb, callback_steps) -> torch.Tensor:
         """The sampler from the LR and its bicubic (NCHW) to the image in

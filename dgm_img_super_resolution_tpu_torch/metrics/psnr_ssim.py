@@ -45,6 +45,19 @@ def _gaussian_window(window_size: int, sigma: float) -> np.ndarray:
     return np.outer(g, g).astype(np.float32)
 
 
+_WINDOWS: dict[tuple, torch.Tensor] = {}
+
+
+def _window_on(window_size: int, device: torch.device) -> torch.Tensor:
+    """The loss SSIM's gaussian window on ``device``, copied there once (a
+    captured training step reads it at its address; a copy from the host
+    cannot be captured)."""
+    key = (window_size, str(device))
+    if key not in _WINDOWS:
+        _WINDOWS[key] = torch.from_numpy(_gaussian_window(window_size, 1.5)).to(device)
+    return _WINDOWS[key]
+
+
 def _depthwise(x: torch.Tensor, win: torch.Tensor, padding: int) -> torch.Tensor:
     """NCHW depthwise conv with the same window on every channel; under a
     row split (``ops/rowsplit.py``) over this member's rows, with its
@@ -68,7 +81,7 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11, size_ave
         img2 = img2 * 0.5 + 0.5
     img1 = img1.to(torch.float32)
     img2 = img2.to(torch.float32)
-    win = torch.from_numpy(_gaussian_window(window_size, 1.5))
+    win = _window_on(window_size, img1.device)
     pad = window_size // 2
     mu1 = _depthwise(img1, win, pad)
     mu2 = _depthwise(img2, win, pad)

@@ -70,8 +70,20 @@ class kernels_disabled:
         return False
 
 
-def _switch(name: str, default: str) -> bool:
-    return os.environ.get(name, default).lower() not in ("", "0", "false")
+# the kernel switches and their defaults: the gates below and routing_key read this table
+_SWITCHES = {"DGMSR_PALLAS_FUSED": "1", "DGMSR_PALLAS_STEM": "1", "DGMSR_PALLAS_DS": "0", "DGMSR_PALLAS_HEAD": "0",
+             "DGMSR_PALLAS_TAIL": "1", "DGMSR_PALLAS_CONV": "0"}
+
+
+def _switch(name: str) -> bool:
+    return os.environ.get(name, _SWITCHES[name]).lower() not in ("", "0", "false")
+
+
+def routing_key() -> tuple:
+    """Everything the gates below read: ``kernels_disabled()``, the
+    switches and ``chain_channels()``. A captured graph (``core/graphs.py``)
+    records the kernels of one routing, so its callers put this in its key."""
+    return (_KERNELS_FORCE_DISABLE, chain_channels()) + tuple(_switch(name) for name in _SWITCHES)
 
 
 def chain_channels() -> tuple[int, ...]:
@@ -94,26 +106,26 @@ def chain_channels() -> tuple[int, ...]:
 def chain_eligible(h: int, w: int, c: int) -> bool:
     """ResnetBlock pairs of width ``c`` go to the chain kernels
     (``DGMSR_PALLAS_FUSED``, default on)."""
-    return (not _KERNELS_FORCE_DISABLE and _switch("DGMSR_PALLAS_FUSED", "1") and c in chain_channels()
+    return (not _KERNELS_FORCE_DISABLE and _switch("DGMSR_PALLAS_FUSED") and c in chain_channels()
             and h >= 2 and w >= 2)
 
 
 def chain_stem_enabled() -> bool:
     """Down stage 0's stem conv and 1x1 residual run inside the chain
     (``DGMSR_PALLAS_STEM``, default on)."""
-    return not _KERNELS_FORCE_DISABLE and _switch("DGMSR_PALLAS_STEM", "1")
+    return not _KERNELS_FORCE_DISABLE and _switch("DGMSR_PALLAS_STEM")
 
 
 def chain_ds_enabled() -> bool:
     """Down stage 0's Downsample folds into the stem chain
     (``DGMSR_PALLAS_DS``, default off)."""
-    return not _KERNELS_FORCE_DISABLE and _switch("DGMSR_PALLAS_DS", "0")
+    return not _KERNELS_FORCE_DISABLE and _switch("DGMSR_PALLAS_DS")
 
 
 def chain_head_enabled(c_stream: int, dim_out: int) -> bool:
     """The up stage's head conv over ``[x || skip]`` and its 1x1 residual
     run inside the chain (``DGMSR_PALLAS_HEAD``, default off)."""
-    return (not _KERNELS_FORCE_DISABLE and _switch("DGMSR_PALLAS_HEAD", "0") and dim_out == 64
+    return (not _KERNELS_FORCE_DISABLE and _switch("DGMSR_PALLAS_HEAD") and dim_out == 64
             and c_stream % 64 == 0 and c_stream <= 128)
 
 
@@ -121,14 +133,14 @@ def tail_eligible(h: int, w: int, c: int) -> bool:
     """The last Upsample, final Block and final 1x1 go to the tail kernel
     (``DGMSR_PALLAS_TAIL``, default on); ``h``/``w``/``c`` are the
     pre-upsample dims."""
-    return (not _KERNELS_FORCE_DISABLE and _switch("DGMSR_PALLAS_TAIL", "1") and c == 64
+    return (not _KERNELS_FORCE_DISABLE and _switch("DGMSR_PALLAS_TAIL") and c == 64
             and h >= 2 and w >= 2)
 
 
 def rowpack_eligible(x: torch.Tensor, c_in: int, features: int) -> bool:
     """A C -> C reflect conv of a Block (no skip join) goes to the conv3x3
     kernel (``DGMSR_PALLAS_CONV``, default off), C in {32, 64}."""
-    return (not _KERNELS_FORCE_DISABLE and _switch("DGMSR_PALLAS_CONV", "0") and c_in == features
+    return (not _KERNELS_FORCE_DISABLE and _switch("DGMSR_PALLAS_CONV") and c_in == features
             and features in (32, 64) and x.ndim == 4 and x.shape[2] >= 2 and x.shape[3] >= 2)
 
 

@@ -5,7 +5,14 @@ CLIP text encode (cond and uncond) -> noise-augment the LR image on the
 low-res DDPM schedule -> denoising loop over latents with the LR image
 concatenated on channels -> VAE decode to x4 resolution, NHWC float [0, 1].
 
-The loop runs on the host in Python, one UNet call per step: classifier-free
+The serve is one program (``_upscale_fn``: the CLIP encode of the token
+ids, the loop, the VAE decode), captured on the card as one CUDA graph per
+call shape (``core/graphs.py``; JAX's ``_denoise_segment`` jits the loop):
+the key is the batch, the LR size, the steps, guidance, noise level, eta,
+``enc_interval`` and the noise's shapes; the token ids, of the prompts and
+the negative prompts alike, are a static input. The callback path, a noise
+hook that is not tensors, ``graphs.eager()`` and the CPU run it eagerly.
+The loop makes one UNet call per step: classifier-free
 guidance is a doubled batch through that call, its unconditional half
 encoding the negative prompt (empty by default); the published model
 predicts v (``prediction_type`` "epsilon" is taken too); the timesteps are
@@ -43,6 +50,7 @@ from dgm_img_super_resolution_tpu_torch.ckpt.sd_inventory import (
     X4_UNET_CONFIG,
     X4_VAE_CONFIG,
 )
+from dgm_img_super_resolution_tpu_torch.core import graphs
 from dgm_img_super_resolution_tpu_torch.core.device import resolve_device
 from dgm_img_super_resolution_tpu_torch.diffusion.schedule import Schedule, make_schedule
 from dgm_img_super_resolution_tpu_torch.models.sd.clip import CLIPTextEncoder, SimpleTokenizer
@@ -122,17 +130,28 @@ class StableDiffusionUpscalePipeline:
         self.final_alpha_cumprod = np.float32(1.0) if sc.get("set_alpha_to_one", True) else acp0
         self.low_res_schedule = _schedule_from_config(lrc)  # LR noise augmentation
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._graphs = graphs.GraphCache()  # the captured serves, by call shape
 
     # ------------------------------------------------------------- internals
     def encode_prompt(self, prompts: list[str], negative: list[str] | None = None):
         """(cond, uncond) text states, each (N, 77, width) in the pipeline's
         dtype; uncond encodes the negative prompts, empty by default."""
+        negative = self._negatives(prompts, negative)
+        states = self.text_encoder(self._token_ids(prompts, negative))
+        return states[: len(prompts)], states[len(prompts):]
+
+    def _token_ids(self, prompts: list[str], negative: list[str]) -> torch.Tensor:
+        """The prompts' then the negative prompts' token ids, (2N, 77) int64
+        on the device."""
+        ids = self.tokenizer(list(prompts) + list(negative))
+        return torch.from_numpy(ids.astype(np.int64)).to(self.device)
+
+    @staticmethod
+    def _negatives(prompts: list[str], negative: list[str] | None) -> list[str]:
         negative = [""] * len(prompts) if negative is None else list(negative)
         if len(negative) != len(prompts):
             raise ValueError(f"{len(negative)} negative prompts for {len(prompts)} prompts")
-        ids = self.tokenizer(list(prompts) + negative)
-        states = self.text_encoder(torch.from_numpy(ids.astype(np.int64)).to(self.device))
-        return states[: len(prompts)], states[len(prompts):]
+        return negative
 
     def _prepare(self, image: torch.Tensor, noise_level: int, noise, gen):
         """Noise-augment the LR image on the low-res schedule; the initial
@@ -219,27 +238,47 @@ class StableDiffusionUpscalePipeline:
         img = img.to(self.device)
         if img.dim() == 3:
             img = img[None]
-        img = img.float() / 127.5 - 1.0 if img.dtype == torch.uint8 else img.float()
-        img = img.permute(0, 3, 1, 2)
         n = img.shape[0]
         if len(prompts) == 1 and n > 1:
             prompts = prompts * n
         negatives = [negative_prompt] * n if isinstance(negative_prompt, str) else negative_prompt
-        cond, uncond = self.encode_prompt(prompts, negatives)
+        ids = self._token_ids(prompts, self._negatives(prompts, negatives))
+        gen = generator or self.generator
+        args = (int(num_inference_steps), float(guidance_scale), int(noise_level), float(eta),
+                max(1, int(enc_interval)) if callback is None else 1)
+        noise_in = {} if noise is None else graphs.tensor_inputs("noise", noise)
+        if callback is not None or noise_in is None or not graphs.enabled(self.device):
+            return self._upscale_fn(ids, img, gen, noise, args, callback, callback_steps)
+        key = ("sd", tuple(img.shape), img.dtype, tuple(ids.shape), graphs.signature(noise), args)
+
+        def fn(inputs, g):
+            nz = None if noise is None else graphs.rebuild("noise", noise, inputs)
+            return self._upscale_fn(inputs["ids"], inputs["image"], g, nz, args)
+
+        return self._graphs.run(key, fn, {"ids": ids, "image": img, **noise_in}, gen)
+
+    def _upscale_fn(self, ids, img, gen, noise, args, callback: Callable | None = None, callback_steps: int = 1):
+        """What :meth:`upscale_device` runs, one program from the token ids
+        and the NHWC LR batch on the device to the x4 batch: the CLIP
+        encode, the denoise loop, the VAE decode. ``args``: (steps,
+        guidance, noise level, eta, enc_interval)."""
+        steps, gs, noise_level, eta, K = args
+        img = img.float() / 127.5 - 1.0 if img.dtype == torch.uint8 else img.float()
+        img = img.permute(0, 3, 1, 2)
+        n = img.shape[0]
+        states = self.text_encoder(ids)
+        cond, uncond = states[:n], states[n:]
 
         # diffusers "leading" spacing: for T=1000 and 20 steps 951, 901, ..., 1
-        T, steps = self.schedule.num_timesteps, int(num_inference_steps)
+        T = self.schedule.num_timesteps
         ratio = T // steps
         if ratio < 1:
             raise ValueError(f"num_inference_steps {steps} > trained T {T}")
         ts = (np.arange(steps) * ratio)[::-1] + self.steps_offset
-        gen = generator or self.generator
-        x, img_aug = self._prepare(img, int(noise_level), noise, gen)
-        gs = float(guidance_scale)
+        x, img_aug = self._prepare(img, noise_level, noise, gen)
         ctx = cond if gs == 1.0 else torch.cat([cond, uncond])
-        nl = torch.full((ctx.shape[0],), int(noise_level), dtype=torch.long, device=self.device)
+        nl = torch.full((ctx.shape[0],), noise_level, dtype=torch.long, device=self.device)
         every = max(1, int(callback_steps))
-        K = max(1, int(enc_interval)) if callback is None else 1
         enc = None
         for i, t in enumerate(int(t) for t in ts):
             if i < steps // K * K and K > 1:
@@ -252,7 +291,7 @@ class StableDiffusionUpscalePipeline:
             if eta:
                 z = torch.randn(x.shape, generator=gen, device=self.device) if noise is None \
                     else noise[2][t].to(self.device, torch.float32)
-            x = self._update(x, t, t - ratio, out, float(eta), z)
+            x = self._update(x, t, t - ratio, out, eta, z)
             if callback is not None and ((i + 1) % every == 0 or i == steps - 1):
                 callback(i, t, x)
         return (self._decode(x) * 0.5 + 0.5).permute(0, 2, 3, 1)

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from dgm_img_super_resolution_tpu_torch.core.graphs import register_counters
+
 C = 64  # channels of the stem, head and tail kernels
 CHAIN_WIDTHS = tuple(range(32, 513, 32))  # channels the chain kernels take
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -68,6 +70,13 @@ def f32(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``v`` rounded to the activation dtype, as float32: the values the
     plain version's convs see, in the layout the kernels read."""
     return v.to(dtype).to(torch.float32).contiguous()
+
+
+def counted(fn):
+    """Decorate a wrapper whose ``launches*`` attributes count its launches:
+    registered with the graph cache, which adds a captured call's counts at
+    every replay of it (``core/graphs.py``)."""
+    return register_counters(fn)
 
 
 def stream_ptr() -> int:

@@ -222,6 +222,7 @@ def _chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
     return _launch_chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond), False
 
 
+@K.counted
 def block_chain3(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond=None):
     """The chain from h1 on (see :func:`block_chain3_plain`). ``a_pre``,
     ``r1``, ``cond``: (B,C,H,W) activations; ``tv1``/``tv2``: (B,C) time
@@ -293,6 +294,7 @@ def _stem_chain(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond):
     return _chain(a_pre, r1, tv1, tv2, wb, bb, wc, bc, wd, bd, cond)
 
 
+@K.counted
 def block_chain3_stem(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond=None):
     """Down stage 0 (see :func:`block_chain3_stem_plain`). ``x``: (B,3,H,W)
     noisy residual in the activation dtype; ``wa``/``ba``: (C,3,3,3)/(C,)
@@ -316,6 +318,7 @@ block_chain3_stem.launches = 0
 block_chain3_stem.launches_wgmma = 0
 
 
+@K.counted
 def block_chain3_stem_ds(x, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd, cond, wds, bds):
     """Down stage 0 with its Downsample folded in (see
     :func:`block_chain3_stem_ds_plain`): the arguments of
@@ -367,6 +370,7 @@ block_chain3_stem_ds.launches_wgmma = 0
 block_chain3_stem_ds.launches_ds_wgmma = 0
 
 
+@K.counted
 def block_chain3_head(x, skip, wa, ba, wr, br, tv1, tv2, wb, bb, wc, bc, wd, bd):
     """The last up stage with its head in front (see
     :func:`block_chain3_head_plain`). ``x``/``skip``: (B,C_s,H,W), the

@@ -35,6 +35,7 @@ def conv3x3_plain(x, w, b, border: str = "zero", mish: bool = False):
     return layers.mish(y) if mish else y
 
 
+@K.counted
 def conv3x3(x, w, b, border: str = "zero", mish: bool = False):
     """x: (B,C,H,W); w: (C,C,3,3); b: (C,). ``border``: "zero" (SAME) or
     "reflect" (ReflectionPad(1)); ``mish`` applies Mish after the bias. CUDA

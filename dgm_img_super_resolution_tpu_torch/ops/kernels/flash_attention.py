@@ -32,6 +32,7 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor)
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
+@K.counted
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """q: (B, Lq, H, D); k, v: (B, Lk, H, D) -> (B, Lq, H, D). CUDA tensors
     launch the kernel (float32 or bfloat16, D in ``HEAD_DIMS``) and raise on

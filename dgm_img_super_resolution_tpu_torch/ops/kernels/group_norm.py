@@ -200,6 +200,7 @@ def fused_group_norm_plain(x, scale, bias, groups: int = 32, eps: float = 1e-5, 
     return y.to(x.dtype).contiguous(memory_format=fmt)
 
 
+@K.counted
 def fused_group_norm(x, scale, bias, groups: int = 32, eps: float = 1e-5, act: str | None = None):
     """x: (N,C,H,W); scale, bias: (C,); ``act``: None or "silu". CUDA
     tensors launch the kernel once, on the route ``plan_for`` gives; the

@@ -71,6 +71,7 @@ def core_wo(wo: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return out
 
 
+@K.counted
 def tail_fuse(x, wt, bt, wf, bf, wo, bo):
     """x: (B,C,H,W) the last up stage's output -> (B,out_dim,2H,2W).
     ``wt``/``bt``: ConvT params; ``wf``/``bf``: (C,C,3,3)/(C,) final Block

@@ -138,14 +138,31 @@ def resize_matrix(in_len: int, out_len: int, variant: str = "matlab", method: st
     return m.astype(dtype)
 
 
+_ON_DEVICE: dict[tuple, torch.Tensor] = {}
+
+
+def _matrix_on(in_len: int, out_len: int, variant: str, method: str, device: torch.device,
+               rows: slice | None = None) -> torch.Tensor:
+    """``resize_matrix`` (its ``rows``) as a tensor on ``device``, copied
+    there once. Kept for the life of the process: a captured graph
+    (``core/graphs.py``) reads it at its address at every replay, and a copy
+    from the host cannot be captured."""
+    key = (in_len, out_len, variant, method, str(device), None if rows is None else (rows.start, rows.stop))
+    m = _ON_DEVICE.get(key)
+    if m is None:
+        m = _ON_DEVICE[key] = torch.from_numpy(resize_matrix(in_len, out_len, variant, method)[rows or slice(None)]
+                                               ).to(device)
+    return m
+
+
 def resize(x: torch.Tensor, out_hw: tuple[int, int], variant: str = "matlab",
            method: str = "bicubic", rows: slice | None = None) -> torch.Tensor:
     """Resize an NCHW tensor to ``out_hw`` with two float32 matrix products
     on its device; ``rows``: only those output rows (the rows of the H
     matrix, applied to the whole of ``x``)."""
     _, _, h, w = x.shape
-    mh = torch.from_numpy(resize_matrix(h, out_hw[0], variant, method)[rows or slice(None)]).to(x.device)
-    mw = torch.from_numpy(resize_matrix(w, out_hw[1], variant, method)).to(x.device)
+    mh = _matrix_on(h, out_hw[0], variant, method, x.device, rows)
+    mw = _matrix_on(w, out_hw[1], variant, method, x.device)
     y = torch.matmul(mh, x.to(torch.float32))
     return torch.matmul(y, mw.t())
 

@@ -23,7 +23,9 @@ keyed ``(name, k)``: ``("z", k)`` the generator input of update k,
 ``("eps", k)`` its (N, 1, 1, 1) mix weights, ``("z_gen", 0)`` the
 generator update's input.
 
-The GANs train on one device, as JAX's do: JAX's ``GANTask`` jits its
+On the card a round replays one captured CUDA graph (``jitted_step``, JAX's
+``jax.jit(train_step)``), both Adams ``capturable`` with their rates in
+device tensors. The GANs train on one device, as JAX's do: JAX's ``GANTask`` jits its
 round without a mesh (its docstring's dp sharding is not what it runs), and
 this task takes no ``mesh`` either.
 
@@ -42,7 +44,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dgm_img_super_resolution_tpu_torch.core import graphs
 from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+from dgm_img_super_resolution_tpu_torch.core.graphs import GraphCache
 from dgm_img_super_resolution_tpu_torch.core.device import resolve_device
 from dgm_img_super_resolution_tpu_torch.models.gan import (
     DCGAN_INIT_STD,
@@ -54,6 +58,7 @@ from dgm_img_super_resolution_tpu_torch.models.gan import (
     flatten_hwc,
 )
 from dgm_img_super_resolution_tpu_torch.models.layers import flax_init_
+from dgm_img_super_resolution_tpu_torch.train.trainer import adam_state_dict, load_adam_state, make_adam
 
 KINDS = ("gan", "dcgan", "wgan-gp")
 
@@ -65,6 +70,7 @@ class GANState:
     gen_opt: torch.optim.Adam
     disc_opt: torch.optim.Adam
     step: int = 0
+    graphs: GraphCache = dataclasses.field(default_factory=GraphCache)  # the captured rounds (jitted_step)
 
 
 def _bce_logits(logits: torch.Tensor, target_ones: bool) -> torch.Tensor:
@@ -121,7 +127,7 @@ class GANTask:
             m.to(self.device)
 
         def adam(m):
-            return torch.optim.Adam(m.parameters(), lr=self.lr, betas=(self.b1, 0.999), eps=1e-8)
+            return make_adam(m.parameters(), self.lr, (self.b1, 0.999), self.device)
 
         return GANState(gen, disc, adam(gen), adam(disc))
 
@@ -205,16 +211,44 @@ class GANTask:
 
     def train_step(self, state: GANState, real, generator: torch.Generator | None = None, noise=None):
         """One adversarial round: ``crit_repeats`` discriminator / critic
-        updates, then one generator update. Metrics stay on the device."""
+        updates, then one generator update. Metrics stay on the device. On
+        the card the round replays its captured graph (:meth:`jitted_step`)."""
+        return self._jitted_step(state, real, generator, noise)
+
+    def jitted_step(self) -> Callable:
+        """The round as one captured CUDA graph, JAX's ``jitted_step``
+        (``train/tasks/gan.py:228``): ``step(state, real, generator=None,
+        noise=None) -> (state, metrics)``, captured after its first, eager
+        run (``core/graphs.py``) and kept on the state: the K critic updates
+        with the WGAN-GP penalty's double backward, the generator update,
+        both capturable Adams and the BatchNorm statistics. On the CPU,
+        under ``graphs.eager()`` and for ``noise`` that is not tensors it
+        runs eagerly."""
+        return self._jitted_step
+
+    def _jitted_step(self, state: GANState, real, generator: torch.Generator | None = None, noise=None):
         real = self._real(real)
+        noise_in = {} if noise is None else graphs.tensor_inputs("noise", noise)
+        if noise_in is None or not graphs.enabled(self.device):
+            metrics = self._round(state, real, generator, noise)
+        else:
+            def fn(inputs, g):
+                return self._round(state, inputs["real"], g,
+                                   None if noise is None else graphs.rebuild("noise", noise, inputs))
+
+            key = ("round", tuple(real.shape), real.dtype, graphs.signature(noise))
+            metrics = state.graphs.run(key, fn, {"real": real, **noise_in}, generator)
+        state.step += 1
+        return state, metrics
+
+    def _round(self, state: GANState, real: torch.Tensor, generator, noise) -> dict:
         draw = _draw_fn(noise, generator, self.device)
         metrics = {}
         for k in range(self.crit_repeats):
             d_loss, extra = self._disc_update(state, real, k, draw)
             metrics.update(extra)
         metrics.update(disc_loss=d_loss, gen_loss=self._gen_update(state, real.shape[0], draw))
-        state.step += 1
-        return state, metrics
+        return metrics
 
     def val_step(self, state: GANState, real, generator: torch.Generator | None = None, noise=None) -> dict:
         """The round's losses without updates, both models in eval mode
@@ -271,7 +305,7 @@ class GANTask:
         from dgm_img_super_resolution_tpu_torch.ckpt.ckpt_io import save_checkpoint
 
         payload = {"gen": state.gen.state_dict(), "disc": state.disc.state_dict(),
-                   "gen_opt": state.gen_opt.state_dict(), "disc_opt": state.disc_opt.state_dict(),
+                   "gen_opt": adam_state_dict(state.gen_opt), "disc_opt": adam_state_dict(state.disc_opt),
                    "step": state.step}
         return save_checkpoint({"state": payload, "global_step": state.step}, path, state.step, num_ckpt_keep=1)
 
@@ -287,7 +321,7 @@ class GANTask:
         state = self.init_state(0)
         state.gen.load_state_dict(saved["gen"])
         state.disc.load_state_dict(saved["disc"])
-        state.gen_opt.load_state_dict(saved["gen_opt"])
-        state.disc_opt.load_state_dict(saved["disc_opt"])
+        load_adam_state(state.gen_opt, saved["gen_opt"])
+        load_adam_state(state.disc_opt, saved["disc_opt"])
         state.step = int(saved["step"])
         return state

@@ -20,6 +20,13 @@ root, as optax's):
 - EMA (``ema_decay`` > 0) moves at every micro-step, as JAX's ``_step``
   does when MultiSteps holds the update back.
 
+On the card at world 1 a step replays captured CUDA graphs
+(``Trainer.compile_step``, JAX's jitted ``compile_step``): Adam is
+``capturable`` there, its rate a device tensor written from ``lr_at``
+before each update and its count a device tensor, and the gradients go
+through the optimizer's static buffers. Several ranks step eagerly: gloo's
+collectives run through the host.
+
 Parameters and Adam's moments stay float32; the model runs its activations
 in ``compute_dtype`` (every layer casts its float32 weights to its input's
 dtype, as flax's ``param_dtype`` float32 / ``dtype`` split). Rows 1-3 of the
@@ -75,6 +82,7 @@ import torch
 import torch.nn as nn
 
 from dgm_img_super_resolution_tpu_torch.ckpt.ckpt_io import load_checkpoint, save_checkpoint
+from dgm_img_super_resolution_tpu_torch.core import graphs
 from dgm_img_super_resolution_tpu_torch.core.config import Hparams
 from dgm_img_super_resolution_tpu_torch.core.device import resolve_device
 from dgm_img_super_resolution_tpu_torch.parallel.mesh import (
@@ -91,7 +99,7 @@ from dgm_img_super_resolution_tpu_torch.parallel.mesh import (
     row_split,
     shard_batch,
 )
-from dgm_img_super_resolution_tpu_torch.models.layers import kernels_disabled
+from dgm_img_super_resolution_tpu_torch.models.layers import kernels_disabled, routing_key
 from dgm_img_super_resolution_tpu_torch.utils.draws import RowDraws
 from dgm_img_super_resolution_tpu_torch.utils.misc import reduce_metrics, to_device
 from dgm_img_super_resolution_tpu_torch.utils.profiling import trace_annotation
@@ -133,64 +141,151 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
+def make_adam(params, lr: float, betas: tuple[float, float], device: torch.device) -> torch.optim.Adam:
+    """``torch.optim.Adam`` with eps 1e-8 outside the square root, as
+    optax's. On the card it is ``capturable``, its rate a float32 device
+    tensor (its ``param_groups``' ``lr``, written in place) and its count a
+    device tensor, so that a step can be captured in a CUDA graph; on the
+    CPU the rate is a float."""
+    cap = torch.device(device).type == "cuda"
+    rate = torch.full((), lr, dtype=torch.float32, device=device) if cap else lr
+    return torch.optim.Adam(params, lr=rate, betas=betas, eps=1e-8, capturable=cap)
+
+
+def set_rate(adam: torch.optim.Adam, lr: float) -> None:
+    """Adam's rate for its next step: written into the device tensor of a
+    capturable Adam (which a captured step reads), else set as a float."""
+    for group in adam.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def adam_state_dict(adam: torch.optim.Adam) -> dict:
+    """Adam's state dict with the rate as a float."""
+    sd = adam.state_dict()
+    for group in sd["param_groups"]:
+        group["lr"] = float(group["lr"])
+    return sd
+
+
+def load_adam_state(adam: torch.optim.Adam, sd: dict) -> None:
+    """Load an :func:`adam_state_dict` written on either device into an
+    Adam of :func:`make_adam`: its own rate tensor (set to the saved rate)
+    and capturable flag stay, and the counts go where they belong, the
+    card when it is capturable, else the CPU."""
+    keep = [(g["lr"], g["capturable"]) for g in adam.param_groups]
+    adam.load_state_dict(sd)
+    for group, (rate, cap) in zip(adam.param_groups, keep):
+        group["capturable"] = cap
+        if isinstance(rate, torch.Tensor):
+            rate.fill_(float(group["lr"]))
+            group["lr"] = rate
+        else:
+            group["lr"] = float(group["lr"])
+    for p, st in adam.state.items():
+        if "step" in st:
+            cap = adam.param_groups[0]["capturable"]
+            st["step"] = torch.as_tensor(st["step"], dtype=torch.float32).to(p.device if cap else "cpu")
+
+
 class Optimizer:
     """``MultiSteps(chain(clip_by_global_norm, adam(schedule)), k)`` over
-    ``params`` (JAX ``make_optimizer``). ``update(grads)`` takes one
-    micro-batch's gradients (None for a parameter without one, which Adam
-    leaves as it is, as optax's zero update does) and returns whether it
-    applied an update."""
+    ``params`` (JAX ``make_optimizer``). A micro-batch takes :meth:`begin`
+    (whether its update is due), :meth:`accumulate` of its gradients (None
+    for a parameter without one, which Adam leaves as it is, as optax's
+    zero update does), :meth:`apply` when due and :meth:`end`: the pieces
+    that a captured step replays.
+
+    The gradients go through static buffers (``bufs``: the micro-batch's
+    at k = 1, their running mean above), and on the card Adam is
+    ``capturable``, its rate a device tensor written from ``lr_at`` before
+    each update (:func:`set_rate`) and its count a device tensor, so that an
+    update can be captured (``Trainer.compile_step``). On the CPU Adam takes
+    the rate as a float. ``graphs`` holds the step's captured graphs, which
+    read this optimizer's buffers and state: loading a state drops them."""
 
     def __init__(self, params: list[nn.Parameter], hp: Hparams):
         self.params = params
         self.hp = hp
         self.max_norm = float(hp["clip_grad_norm"] or 0.0)
         self.k = max(1, int(hp.get("accumulate_grad_batches", 1)))
-        self.adam = torch.optim.Adam(params, lr=lr_at(hp, 0), betas=(0.9, 0.999), eps=1e-8)
+        dev = params[0].device if params else torch.device("cpu")
+        self.adam = make_adam(params, lr_at(hp, 0), (0.9, 0.999), dev)
+        self.div_t = torch.ones((), dtype=torch.float32, device=dev)  # the running mean's n + 1
+        self.bufs: list[torch.Tensor | None] | None = None
         self.updates = 0
         self.mini_step = 0
-        self.acc: list[torch.Tensor | None] | None = None
+        self.graphs = graphs.GraphCache()
 
     @property
     def lr(self) -> float:
         """The learning rate of the next update."""
         return lr_at(self.hp, self.updates)
 
-    def update(self, grads: list[torch.Tensor | None]) -> bool:
+    def begin(self) -> bool:
+        """Before a micro-batch: its n + 1 onto the device and, when it
+        completes an update, the rate; whether it does."""
+        due = self.mini_step + 1 == self.k
         if self.k > 1:
-            if self.acc is None:
-                self.acc = [None if g is None else torch.zeros_like(g) for g in grads]
-            for a, g in zip(self.acc, grads):
-                if a is not None and g is not None:
-                    a.add_((g - a) / (self.mini_step + 1))
-            self.mini_step += 1
-            if self.mini_step < self.k:
-                return False
-            grads, self.acc, self.mini_step = self.acc, None, 0
-        present = [g for g in grads if g is not None]
+            self.div_t.fill_(self.mini_step + 1)
+        if due:
+            set_rate(self.adam, self.lr)
+        return due
+
+    def accumulate(self, grads: list[torch.Tensor | None]) -> None:
+        """Fold one micro-batch's gradients into the buffers: a copy at
+        k = 1, else optax's running mean acc + (g - acc) / (n + 1). The
+        buffers are made at the first micro-batch, for the parameters that
+        have a gradient there."""
+        if self.bufs is None:
+            self.bufs = [None if g is None else torch.zeros_like(g) for g in grads]
+        pairs = [(b, g) for b, g in zip(self.bufs, grads) if b is not None and g is not None]
+        if self.k == 1:
+            torch._foreach_copy_([b for b, _ in pairs], [g for _, g in pairs])
+            return
+        for b, g in pairs:
+            b.add_((g - b) / self.div_t)
+
+    def apply(self) -> None:
+        """Clip the buffers by their global norm and step Adam on them; at
+        k > 1 zero them for the next mean."""
+        present = [b for b in self.bufs if b is not None]
         if self.max_norm and present:
             norm = global_norm(present)
             keep = norm < self.max_norm
             torch._foreach_div_(present, torch.where(keep, torch.ones_like(norm), norm))
             torch._foreach_mul_(present, torch.where(keep, torch.ones_like(norm), torch.full_like(norm, self.max_norm)))
-        for p, g in zip(self.params, grads):
-            p.grad = g
-        for group in self.adam.param_groups:
-            group["lr"] = self.lr
+        for p, b in zip(self.params, self.bufs):
+            p.grad = b
         self.adam.step()
         for p in self.params:
             p.grad = None
-        self.updates += 1
-        return True
+        if self.k > 1:
+            torch._foreach_zero_(present)
+
+    def end(self, due: bool) -> None:
+        """The host's counts after a micro-batch."""
+        if due:
+            self.updates += 1
+            self.mini_step = 0
+        else:
+            self.mini_step += 1
 
     def state_dict(self) -> dict:
-        return {"adam": self.adam.state_dict(), "updates": self.updates, "mini_step": self.mini_step,
-                "acc_grads": self.acc}
+        acc = self.bufs if self.k > 1 and self.mini_step else None
+        return {"adam": adam_state_dict(self.adam), "updates": self.updates, "mini_step": self.mini_step,
+                "acc_grads": acc}
 
     def load_state_dict(self, sd: dict) -> None:
-        self.adam.load_state_dict(sd["adam"])
+        """Load a state of :meth:`state_dict`, written on either device."""
+        self.graphs.clear()
+        load_adam_state(self.adam, sd["adam"])
         self.updates, self.mini_step = int(sd["updates"]), int(sd["mini_step"])
+        set_rate(self.adam, self.lr)
         acc = sd.get("acc_grads")
-        self.acc = None if acc is None else [None if a is None else a.to(p.device) for a, p in zip(acc, self.params)]
+        self.bufs = None if acc is None else [None if a is None else a.to(p.device) for a, p in zip(acc, self.params)]
 
 
 @dataclasses.dataclass
@@ -245,7 +340,56 @@ class Trainer:
         to ``loss_fn`` (a test's ``t`` and ``noise``: a tensor, a tuple of
         them or a hook, over the global batch and the whole image, is
         sliced to the rows). Metrics are the global batch's, and stay on
-        the device."""
+        the device. On the card at world 1 the step replays its captured
+        graphs (:meth:`compile_step`); over several ranks, whose gloo
+        collectives run through the host, it runs eagerly."""
+        if not spatial and self.mesh.world == 1 and graphs.enabled(self.device):
+            return self.compile_step()(state, batch, generator, **loss_kw)
+        return self._eager_step(state, batch, generator, spatial, **loss_kw)
+
+    def compile_step(self) -> Callable:
+        """The step as captured CUDA graphs, JAX's ``compile_step``
+        (``train/trainer.py:138``): ``step(state, batch, generator=None,
+        **loss_kw) -> (state, metrics)`` at world 1. Two graphs a
+        micro-batch, each captured after its first, eager run
+        (``core/graphs.py``) and kept on the optimizer: the micro-batch's
+        (forward, backward through the regions' ``autograd.Function`` calls,
+        the metrics, the gradients folded into the optimizer's buffers),
+        then, chosen by the host's ``mini_step``, the update's (clip, Adam,
+        then the EMA) or, while the update is held back, the EMA's: the
+        EMA moves after the update, as in the eager step. The rate and the
+        running mean's n + 1 are written to their device tensors before the
+        replays. On the CPU and under ``graphs.eager()`` the same pieces run
+        eagerly; a ``loss_kw`` that is not tensors (a noise hook) takes the
+        eager step."""
+        return self._compiled_step
+
+    def _compiled_step(self, state: TrainState, batch: dict | Shard, generator: torch.Generator | None = None,
+                       **loss_kw) -> tuple[TrainState, dict]:
+        if self.mesh.world != 1:
+            raise ValueError(f"a captured step runs one process; this one is rank {self.mesh.rank} of "
+                             f"{self.mesh.world}: train_step runs it eagerly")
+        loss_kw = {k: v for k, v in loss_kw.items() if v is not None}
+        kw_in = graphs.tensor_inputs("kw", loss_kw)
+        if kw_in is None or not graphs.enabled(self.device):
+            return self._eager_step(state, batch, generator, False, **loss_kw)
+        batch = batch_to_device(batch.data if isinstance(batch, Shard) else batch, self.device)
+        opt = state.optimizer
+        due = opt.begin()
+
+        def micro(inputs, g):
+            return self._micro(state, graphs.rebuild("batch", batch, inputs), g, graphs.rebuild("kw", loss_kw, inputs))
+
+        key = ("micro", graphs.signature(batch), graphs.signature(loss_kw), routing_key())
+        metrics = opt.graphs.run(key, micro, {**graphs.tensor_inputs("batch", batch), **kw_in}, generator)
+        if due or state.ema is not None:
+            opt.graphs.run(("update" if due else "ema",), lambda inputs, g: self._tail(state, due), {})
+        opt.end(due)
+        state.step += 1
+        return state, metrics
+
+    def _eager_step(self, state: TrainState, batch: dict | Shard, generator: torch.Generator | None,
+                    spatial: bool, **loss_kw) -> tuple[TrainState, dict]:
         if isinstance(batch, Shard):
             rows, batch = batch.rows, batch.data
         else:
@@ -262,6 +406,17 @@ class Trainer:
             loss_kw = {k: _rows_of(v, rows, image) for k, v in loss_kw.items()}
             generator = RowDraws(generator, rows, image)
         batch = batch_to_device(batch, self.device)
+        due = state.optimizer.begin()
+        metrics = self._micro(state, batch, generator, loss_kw, spatial)
+        self._tail(state, due)
+        state.optimizer.end(due)
+        state.step += 1
+        return state, metrics
+
+    def _micro(self, state: TrainState, batch: dict, generator, loss_kw: dict, spatial: bool = False) -> dict:
+        """A micro-batch on the device: loss, gradients (averaged over the
+        ranks with the metrics), the metrics, and the gradients folded into
+        the optimizer's buffers."""
         params = state.optimizer.params
         with trace_annotation("loss_and_grad"), contextlib.ExitStack() as stack:
             if spatial:
@@ -282,13 +437,19 @@ class Trainer:
             if self.hp.get("print_nan_grads", False):
                 # reference config key print_nan_grads (config.yaml:42): non-finite gradient elements
                 metrics["nan_grads"] = sum((~torch.isfinite(g)).sum() for g in present)
-            state.optimizer.update(grads)
+            state.optimizer.accumulate(grads)
+        return metrics
+
+    def _tail(self, state: TrainState, due: bool) -> None:
+        """The update when it is due, then the EMA, which moves at every
+        micro-batch."""
+        with trace_annotation("optimizer_update"):
+            if due:
+                state.optimizer.apply()
             if state.ema is not None:
                 ema, d = list(state.ema.values()), self.ema_decay
                 torch._foreach_mul_(ema, d)
                 torch._foreach_add_(ema, [p.detach() for p in state.model.parameters()], alpha=1.0 - d)
-        state.step += 1
-        return state, metrics
 
     # ------------------------------------------------------------------ loop
     def fit(self, data_iter: Iterable, generator: torch.Generator | int | None = None,

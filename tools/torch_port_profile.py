@@ -6,6 +6,7 @@
                                         [--enc-interval K] [--lr PX] [--top 20] [--out DIR]
     python3 tools/torch_port_profile.py --train [--config ...] [--batch 64] [--hr 160] [--top 20] [--out DIR]
     python3 tools/torch_port_profile.py --edu ae|vae|ddpm|gan|dcgan|wgan-gp|ddpm_sample [--batch N] [--top 20]
+    (any of them with --eager)
 
 ``--model srdiff`` (default) serves the default full-width SRDiff config
 (seeded random weights, bf16, DDIM ``--steps`` steps with eta 1, batch
@@ -36,6 +37,12 @@ batch ``--batch``, 128 and the DDPM 64, on the card, after two warm-up
 steps), or ``ddpm_sample``: 20 steps of the DDPM sampler at batch 16. It
 prints the device time by kernel class, the busy share and the ``--top``
 kernels.
+The serves, the training steps and the GAN rounds replay their captured
+CUDA graphs (``core/graphs.py``): the warm-up captures them, and the
+profiled call is a replay, whose kernels run without the host's record
+ranges, so that ``--train``'s split by range (the recompute, the
+optimizer) reads 0 there. ``--eager`` profiles the eager path
+(``graphs.eager()``) instead, warm-up included.
 Needs one CUDA device and nvcc (``--edu`` needs no nvcc); run from the root of the repository.
 """
 
@@ -80,19 +87,25 @@ def main() -> int:
     ap.add_argument("--hr", type=int, default=160, help="HR crop side of --train")
     ap.add_argument("--edu", choices=("ae", "vae", "ddpm", "gan", "dcgan", "wgan-gp", "ddpm_sample"), default=None,
                     help="profile one step of an educational task")
+    ap.add_argument("--eager", action="store_true", help="the eager path instead of the captured graphs' replay")
     args = ap.parse_args()
+
+    import contextlib
 
     import torch
 
     from chip_smoke import CONFIGS, switches
+    from dgm_img_super_resolution_tpu_torch.core import graphs
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    if args.edu:
-        return profile_edu(args)
-    with switches(**CONFIGS[args.config]):
-        return profile_train(args) if args.train else profile_serve(args)
+    with graphs.eager() if args.eager else contextlib.nullcontext():
+        print(f"path: {'eager' if args.eager else 'captured graphs, replayed'}", flush=True)
+        if args.edu:
+            return profile_edu(args)
+        with switches(**CONFIGS[args.config]):
+            return profile_train(args) if args.train else profile_serve(args)
 
 
 def _subtree_kernels(evt, into: dict[str, float]) -> None:
