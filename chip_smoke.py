@@ -146,8 +146,8 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    moments and the parameters after each), ten updates on one batch
    lowering the loss, and the step's (round's) time with the batch on the
    card at batch 128 (the DDPM at 64); ``GANTask.fit`` with validation and
-   its model IO round trip; the VAE and DDPM samplers (T = 1000, batch 16)
-   timed. Every kernel counter must read 0 across the phase.
+   its model IO round trip; the VAE and DDPM samplers (T = 250, batch 16;
+   phase_graphs replays the DDPM chain) timed. Every kernel counter must read 0 across the phase.
 15. The native imresize (``phase_native``): the port's C++ library builds
    on the card's host, ``imresize`` takes it by default and equals the
    matrix path (uint8 exactly, float64 to 1e-12), and ``Measure.measure``
@@ -202,7 +202,24 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    all three graphs) and one WGAN-GP round (compared under cuDNN's
    deterministic algorithms); each timed in turns (eager s and replayed s a
    call), with its capture s and the bytes its graphs added to the cache's
-   shared pool.
+   shared pool. Then the paths captured as segmented programs or whole
+   (``_graph_path``; the call after the capture must capture nothing, the
+   host callbacks' sequence must be the eager one): the SRDiff progress
+   path at batch 1 with ``callback_steps`` 10 (the apps' and the CLI's)
+   and 3 (a remainder segment), the SD callback path at LR 128 and 256
+   with ``callback_steps`` 1 (one entry of 22 graphs; 120 flash launches at
+   256), ``interpolate`` at 512^2 (99 launches of rows 1-3; another mixing
+   weight replays), SRDiff validation with ``sample_metrics`` at
+   ``phase_train``'s hparams (2 batches of 16 and the T = 100 sample: 102
+   launches of rows 1-3), a WGAN-GP ``val_step``, the DDPM sampler at T =
+   250 and batch 16 (one graph over the chain, compared under cuDNN's
+   deterministic algorithms; its eager calls and four replays timed) and
+   LPIPS at 512^2; and the CLI's ``infer --progress`` wall, eager and
+   through the graphs, in turns. Interpolation, the DDPM sampler and LPIPS
+   capture at a key's second call: their first call must run eagerly and
+   capture nothing. Each path's own eager call is traced against a replay;
+   interpolation's and validation's at 20 steps, the DDPM sampler's at T =
+   10 (a long eager trace loses records).
 
 Any failure exits non-zero. The line before the last is the kernel table
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -3644,7 +3661,7 @@ EDU_TASKS = ("ae", "vae", "ddpm", "gan", "dcgan", "wgan-gp")
 EDU_BATCH, EDU_DDPM_BATCH = 128, 64  # the timed steps' batch (the DDPM at 64)
 EDU_CHECK_BATCH = 8  # card vs CPU: the CPU runs the same float32 step
 EDU_DESCENT_STEPS, EDU_TIMED_STEPS = 10, 10
-EDU_SAMPLE_N, EDU_SAMPLE_T = 16, 1000  # the samplers at the default T; 250 if the phase would exceed 60 s
+EDU_SAMPLE_N, EDU_SAMPLE_T = 16, 250  # the DDPM chain cut from the default T = 1000
 EDU_HP = dict(compute_dtype="float32", lr=1e-3, clip_grad_norm=10.0, val_check_interval=0, tb_log_interval=1000)
 # A BatchNorm output within this of 0 may fall on either side of the (leaky) ReLU's kink on the card and
 # on the CPU (their batch variances sum in other orders), which changes that channel's gradient by one
@@ -3915,6 +3932,8 @@ def phase_edu(rows, card, dev="cuda"):
 
     import torch
 
+    from dgm_img_super_resolution_tpu_torch.core import graphs
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counters = _counters()
@@ -3959,34 +3978,25 @@ def phase_edu(rows, card, dev="cuda"):
     v = vae_task.sample(vae_model, n=EDU_SAMPLE_N, generator=g)
     torch.cuda.synchronize()
     vae_ms = 1e3 * (time.perf_counter() - t0)
-    # the T-step chain's time from 5 of its steps: at T = 250 if T = 1000 would take the phase past 60 s
-    x = torch.randn(EDU_SAMPLE_N, 1, 32, 32, device=dev, generator=g)
-    with torch.no_grad():
-        ddpm_model.p_sample_step(x, 999, x)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for t in range(999, 994, -1):
-            ddpm_model.p_sample_step(x, t, x)
-        torch.cuda.synchronize()
-    per_step_s = (time.perf_counter() - t0) / 5
-    steps = EDU_SAMPLE_T if time.perf_counter() - t_phase + EDU_SAMPLE_T * per_step_s <= 60 else 250
+    steps = EDU_SAMPLE_T
     if steps != ddpm_task.ddpm.num_timesteps:
         from dgm_img_super_resolution_tpu_torch.core.config import Hparams
         from dgm_img_super_resolution_tpu_torch.train.tasks.vae import DDPMTask
 
         short = DDPMTask(Hparams(**dict(EDU_HP, ddpm_timesteps=steps)), device=dev)
         short.model.load_state_dict(ddpm_model.state_dict())
-        ddpm_task, ddpm_model = short, short.model
+        ddpm_task, ddpm_model = short, short.model.to(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    s = ddpm_task.sample(ddpm_model, n=EDU_SAMPLE_N, generator=g)
+    with graphs.eager():  # the eager chain, as timed before; phase_graphs captures and times its replay
+        s = ddpm_task.sample(ddpm_model, n=EDU_SAMPLE_N, generator=g)
     torch.cuda.synchronize()
     ddpm_s = time.perf_counter() - t0
     ok = (tuple(v.shape) == (EDU_SAMPLE_N, 1, 32, 32) and tuple(s.shape) == (EDU_SAMPLE_N, 1, 32, 32)
           and bool(torch.isfinite(v).all() and torch.isfinite(s).all()) and 0 <= float(v.min())
           and float(v.max()) <= 1)
     print(f"{card}: VAE sample of {EDU_SAMPLE_N} in {vae_ms:.2f} ms; DDPM sample of {EDU_SAMPLE_N} at 32x32 over "
-          f"T = {steps}{' (cut from 1000 to keep the phase near 60 s)' if steps != 1000 else ''} in {ddpm_s:.2f} s "
+          f"T = {steps} (cut from 1000; phase_graphs replays it) in {ddpm_s:.2f} s "
           f"({steps / ddpm_s:.1f} UNet calls/s) {'ok' if ok else 'FAIL'}", flush=True)
     res["samplers"] = {"vae_ms": vae_ms, "ddpm_s": ddpm_s, "ddpm_T": steps, "n": EDU_SAMPLE_N}
     if not ok:
@@ -4163,8 +4173,9 @@ def phase_sampler_api(dev="cuda"):
 # (weight gradients summed by atomics) two eager rounds differ, and Adam moves each zero-gradient conv bias
 # by that noise.
 GRAPH_ROUNDS = {"srdiff_b8": 4, "srdiff_b1": 4, "srdiff_t100_b1": 2, "sd_lr128": 2, "sd_lr256": 2, "train": 3,
-                "wgan_gp": 4}
+                "wgan_gp": 4, "progress": 2, "sd_callback": 0, "interp": 1, "validation": 1, "lpips": 4}
 GRAPH_TRAIN_STEPS, GRAPH_TRAIN_ACC = 3, 2
+GRAPH_DDPM_REPLAYS = 3  # the DDPM chain's replays timed beyond the compared one
 GRAPH_NONDET_REL = 3e-2
 
 
@@ -4192,19 +4203,20 @@ def _graph_report(label, entries, first_s, eager_s, replay_s, launches, want, sa
     the launches of one replay, the times, the path's captures and pools."""
     capture_s = sum(e.capture_s for e in entries)
     pool = sum(e.pool_bytes for e in entries)
+    n_graphs = sum(len(getattr(e, "pieces", [e])) for e in entries)  # a segmented program: a graph a piece
     equal_ok = same is True or (nondet is not None and same <= GRAPH_NONDET_REL)
     ok = equal_ok and launches == want
     spread = lambda xs: f"{median(xs):.4f} s ({min(xs):.4f}-{max(xs):.4f})"  # noqa: E731
     eq = "bit-equal" if same is True else f"max rel {same:.3e} (bound {GRAPH_NONDET_REL}; not deterministic: {nondet})"
     print(f"graphs {label}: replay vs eager {eq}{'' if equal_ok else ' FAIL'}; eager {spread(eager_s)}, replayed "
-          f"{spread(replay_s)} a call (x{median(eager_s) / median(replay_s):.2f}); first call {first_s:.3f} s with "
-          f"capture {capture_s:.3f} s of {len(entries)} graph(s), pool {pool / 2**20:.1f} MiB; launches a replay "
+          f"{spread(replay_s)} a call (x{median(eager_s) / median(replay_s):.2f}); capturing call {first_s:.3f} s with "
+          f"capture {capture_s:.3f} s of {n_graphs} graph(s), pool {pool / 2**20:.1f} MiB; launches a replay "
           f"{launches} {'ok' if launches == want else f'FAIL (expected {want})'}", flush=True)
     if not ok:
         failures.append(f"graphs {label}: replay vs eager {same}, launches {launches} (expected {want})")
     return {"equal": same is True, "max_rel": None if same is True else same, "nondeterministic": nondet,
             "eager_s": eager_s, "replay_s": replay_s, "first_call_s": first_s, "capture_s": capture_s,
-            "graphs": len(entries), "pool_bytes": pool, "launches_per_replay": launches}
+            "graphs": n_graphs, "pool_bytes": pool, "launches_per_replay": launches}
 
 
 def _tree_rel(a: list, b: list) -> float:
@@ -4394,6 +4406,223 @@ def _graph_wgan(counters, failures) -> dict:
     return out
 
 
+def _graph_path(label, call, caches, rounds, counters, failures, want, traced=True, on_repeat=False, replays=0,
+                trace=None) -> dict:
+    """A captured path. ``call(seed)`` -> (the outputs, a list of tensors;
+    the host callbacks' sequence); ``caches`` the graph caches it captures
+    into. Its first call captures (``on_repeat``: its first call runs
+    eagerly and must capture nothing, its second captures); the call after
+    the capture must capture nothing, replay bit-equal to ``graphs.eager()``
+    from one generator state (where they differ, a second eager call names
+    the non-determinism) with the eager callbacks' sequence, and launch
+    ``want``; eager and replayed s a call in turns (``rounds`` 0: the
+    eager calls made and the compared replay with ``replays`` more); one
+    replay's and one eager call's port kernels traced (``trace(seed)``, a
+    shorter call of the same path, instead of ``call`` where an eager trace
+    of ``call`` is too long to trust: see :func:`replay_trace_check`; not
+    ``traced``: the launch counters alone)."""
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.core import graphs
+
+    def entries():
+        return [e for c in caches for e in c.entries.values()]
+
+    def timed(seed, eager=False, fn=call):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with graphs.eager() if eager else contextlib.nullcontext():
+            out, seq = fn(seed)
+        torch.cuda.synchronize()
+        return out, seq, time.perf_counter() - t0
+
+    t_path = time.perf_counter()
+    before, eager_t = {id(e) for e in entries()}, []
+    if on_repeat:
+        eager_t.append(timed(0)[2])
+        if len(entries()) != len(before):
+            failures.append(f"graphs {label}: the first call captured a graph")
+    first = timed(0)[2]
+    captured = [e for e in entries() if id(e) not in before]
+    after_first = [id(e) for e in entries()]
+    _reset_counts(counters)
+    got, seq_g, replay_t = timed(7)
+    launches = {k: v for k, v in _read_counts(counters).items() if v}
+    fresh = [id(e) for e in entries()] != after_first
+    want_out, seq_e, t = timed(7, eager=True)
+    eager_t.append(t)
+    same, nondet = True, None
+    if not all(torch.equal(a, b) for a, b in zip(got, want_out, strict=True)):
+        same, nondet = _compare(want_out, timed(7, eager=True)[0], got, "the eager call")
+    replay_t = [replay_t] + [timed(0)[2] for _ in range(replays)]
+    eager_s, replay_s = _graph_turns(lambda: call(0), rounds) if rounds else (eager_t, replay_t)
+    out = _graph_report(label, captured, first, eager_s, replay_s, launches, want, same, nondet, failures)
+    print(f"graphs {label}: {f'the first call ran eagerly in {eager_t[0]:.3f} s, ' if on_repeat else ''}the call "
+          f"after the capture captured {'a graph: FAIL' if fresh else 'nothing, ok'}; callbacks {len(seq_g)}, "
+          f"{'as the eager call' if seq_g == seq_e else 'NOT as the eager call: FAIL'}", flush=True)
+    if fresh or seq_g != seq_e:
+        failures.append(f"graphs {label}: the second call captured {fresh}, callbacks {seq_g} against {seq_e}")
+    out.update(second_call_captured=fresh, callbacks=len(seq_g), callbacks_as_eager=seq_g == seq_e,
+               on_repeat=on_repeat)
+    t_trace = time.perf_counter()
+    if traced:
+        if trace is not None:  # its own key: captured before the trace
+            for _ in range(2 if on_repeat else 1):
+                trace(0)
+        run = trace or call
+        out["traced"] = replay_trace_check(f"graphs {label}{' (traced shorter)' if trace else ''}",
+                                           lambda: run(0), counters, failures)
+    out["path_s"], out["trace_s"] = time.perf_counter() - t_path, time.perf_counter() - t_trace
+    print(f"graphs {label}: {out['path_s']:.1f} s, the traces {out['trace_s']:.1f} s of it", flush=True)
+    return out
+
+
+def _graph_progress(pipe, imgs, every, counters, failures) -> dict:
+    """The progress path at batch 1, its own eager call traced."""
+    import torch
+
+    def call(seed):
+        seq = []
+        out = pipe.upscale_batch_device(imgs, generator=torch.Generator(device="cuda").manual_seed(seed),
+                                        as_uint8=True, progress_cb=lambda d, t: seq.append((d, t)),
+                                        callback_steps=every)
+        return [out], seq
+
+    return _graph_path(f"SRDiff progress ddim20 eta 1 bf16 uint8 B=1 128->512, callback_steps {every}", call,
+                       [pipe._graphs], GRAPH_ROUNDS["progress"], counters, failures, SERVE_LAUNCHES["default"])
+
+
+def _graph_whole(counters, failures, card) -> dict:
+    """The paths JAX jits whole beside the serves: interpolation at 512^2,
+    SRDiff validation, a WGAN-GP ``val_step``, the DDPM sampler, LPIPS; and
+    the CLI's ``infer --progress`` wall, eager and through the graphs.
+    Interpolation, the DDPM sampler and LPIPS capture at a key's second
+    call. Interpolation's and validation's eager traces are of the same
+    path at 20 steps (one eager trace of some 180k launches lost 2 of the
+    port's 1000 kernel records), the DDPM sampler's at T = 10."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from dgm_img_super_resolution_tpu_torch.core import graphs
+    from dgm_img_super_resolution_tpu_torch.core.config import Hparams
+    from dgm_img_super_resolution_tpu_torch.inference import SRDiffPipeline
+    from dgm_img_super_resolution_tpu_torch.metrics.lpips import LPIPS
+    from dgm_img_super_resolution_tpu_torch.train.tasks.srdiff import SRDiffTask
+    from dgm_img_super_resolution_tpu_torch.train.tasks.vae import DDPMTask
+
+    res = {}
+    per_step = {k: v // 20 for k, v in SERVE_LAUNCHES["default"].items()}
+    pipe = SRDiffPipeline(Hparams(sampler="ddim", sample_timesteps=20, ddim_eta=1.0, compute_dtype="bfloat16"))
+    g = np.random.default_rng(21)
+    a, b = (g.integers(0, 256, (512, 512, 3), dtype=np.uint8) for _ in range(2))
+    steps = pipe.hp["timesteps"] - 1
+
+    def interp(seed, t=None):  # seeds 0 and 7: two mixing weights, one graph
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return [torch.from_numpy(pipe.interpolate(a, b, lam=0.25 + 0.5 * (seed % 2), t=t, generator=gen))], []
+
+    res["interp"] = _graph_path(f"SRDiff interpolate 512^2 bf16 (t = {steps}: {steps} steps)", interp,
+                                [pipe._graphs], GRAPH_ROUNDS["interp"], counters, failures,
+                                _times(per_step, steps), on_repeat=True, trace=lambda seed: interp(seed, t=20))
+    del pipe
+    torch.cuda.empty_cache()
+
+    val_batches = [_train_batch(TRAIN_VAL_SIZE, TRAIN_HR, seed=70 + i) for i in range(TRAIN_VAL_BATCHES)]
+
+    def validation(timesteps=None):
+        """A validate(seed) at the training hparams (``timesteps``: the
+        model's T instead), its cache, its T."""
+        task = SRDiffTask(Hparams(**dict(TRAIN_HP, **({} if timesteps is None else {"timesteps": timesteps}))))
+        state = task.make_trainer().init_state()
+        val = task.make_val_fn(val_batches, sample_metrics=True)
+
+        def validate(seed):
+            m = val(state)
+            return [torch.tensor([m[k] for k in sorted(m)], dtype=torch.float64)], sorted(m)
+
+        return validate, val.graphs, task.diffusion.num_timesteps
+
+    validate, val_graphs, t_val = validation()
+    res["validation"] = _graph_path(
+        f"SRDiff validation B={TRAIN_VAL_SIZE} {TRAIN_HR}^2 bf16 ({TRAIN_VAL_BATCHES} loss batches, the T = "
+        f"{t_val} sample, PSNR / SSIM)", validate, [val_graphs], GRAPH_ROUNDS["validation"], counters, failures,
+        _times(per_step, TRAIN_VAL_BATCHES + t_val), trace=validation(timesteps=20)[0])
+    del validate, val_graphs
+    torch.cuda.empty_cache()
+
+    gan = _edu_task("wgan-gp", "cuda")
+    gstate = gan.init_state(0)
+    real = gan._real(_edu_batch("wgan-gp", EDU_BATCH, seed=4))
+
+    def val_step(seed):
+        m = gan.val_step(gstate, real, torch.Generator(device="cuda").manual_seed(seed))
+        return [m["disc_loss"], m["gen_loss"]], []
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # as the round's comparison
+    try:
+        res["wgan_gp_val"] = _graph_path(f"WGAN-GP val_step B={EDU_BATCH} f32 (cudnn.deterministic)", val_step,
+                                         [gstate.graphs], GRAPH_ROUNDS["wgan_gp"], counters, failures, {})
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    del gan, gstate
+
+    def ddpm_sampler(timesteps):
+        """A sample(seed) of the DDPM at ``timesteps``, its model."""
+        task = DDPMTask(Hparams(**dict(EDU_HP, ddpm_timesteps=timesteps)), device="cuda")
+        model = task.init_params(0).to("cuda")
+
+        def sample(seed):
+            return [task.sample(model, n=EDU_SAMPLE_N, generator=torch.Generator(device="cuda").manual_seed(seed))], []
+
+        return sample, model
+
+    # at phase_edu's T (cut from 1000: the T = 1000 chain's eager call, capture and replay took 72 s of this
+    # phase), compared under cuDNN's deterministic algorithms (with its defaults two eager chains differ by
+    # ~2e-6); its traces at T = 10 (the profiler took 81 s over one T = 1000 replay). The educational models
+    # launch no port kernel: the traces and the captured counts must show none.
+    sample, model = ddpm_sampler(EDU_SAMPLE_T)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        res["ddpm_sample"] = _graph_path(f"DDPM sampler T = {EDU_SAMPLE_T} B={EDU_SAMPLE_N} 32^2 f32 "
+                                         "(cudnn.deterministic)", sample, [model._graphs], 0, counters, failures, {},
+                                         on_repeat=True, replays=GRAPH_DDPM_REPLAYS, trace=ddpm_sampler(10)[0])
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    del sample, model
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _random_lpips_npz(tmp / "lpips.npz")
+        scorer = LPIPS.maybe_create(str(tmp / "lpips.npz"), "cuda")
+
+        def lpips(seed):
+            r = np.random.default_rng(seed)
+            x, y = (r.integers(0, 256, (512, 512, 3), dtype=np.uint8) for _ in range(2))
+            return [torch.tensor(scorer(x, y), dtype=torch.float64)], []
+
+        res["lpips"] = _graph_path("LPIPS 512^2 f32", lpips, [scorer._graphs], GRAPH_ROUNDS["lpips"], counters,
+                                   failures, {}, on_repeat=True)
+        Image.fromarray(np.random.default_rng(22).integers(0, 256, (128, 128, 3), dtype=np.uint8)).save(tmp / "lr.png")
+        walls = {True: [], False: []}
+        for eager in (True, False, False, True):
+            with graphs.eager() if eager else contextlib.nullcontext():
+                rc, _, dt = _cli(["infer", str(tmp / "lr.png"), str(tmp / "sr.png"), "--progress", "-hp", SERVE_HP])
+            walls[eager].append(dt)
+            if rc != 0:
+                failures.append(f"CLI infer --progress (eager {eager}): rc {rc}")
+    res["cli_infer_progress"] = {"eager_s": walls[True], "graphs_s": walls[False]}
+    print(f"{card}: CLI infer --progress 128 -> 512 ddim20 bf16 (a pipeline built a call): eager "
+          f"{median(walls[True]):.3f} s, through the graphs (eager first call, then the captures) "
+          f"{median(walls[False]):.3f} s, in turns e g g e", flush=True)
+    return res
+
+
 def phase_graphs(card):
     """The captured paths (``core/graphs.py``): the default uint8 SRDiff
     serve at batch 8 and 1 (128 -> 512, bf16, ddim20 eta 1), the T = 100
@@ -4419,6 +4648,8 @@ def phase_graphs(card):
                                     GRAPH_ROUNDS["srdiff_b8"], counters, failures)
     res["srdiff_b1"] = _graph_serve("SRDiff ddim20 eta 1 bf16 uint8 B=1 128->512", pipe, imgs[:1], 1,
                                     GRAPH_ROUNDS["srdiff_b1"], counters, failures)
+    for every in (10, 3):
+        res[f"progress_b1_every{every}"] = _graph_progress(pipe, imgs[:1], every, counters, failures)
     anc = SRDiffPipeline(Hparams(sampler="ddpm", compute_dtype="bfloat16"), params=pipe.model.state_dict())
     del pipe
     # the ancestral chain's eager trace: the ddim20 serve's at batch 1, 100 UNet steps instead of 20
@@ -4445,6 +4676,16 @@ def phase_graphs(card):
                                           list(sd._graphs.entries.values()), first, eager_s, replay_s, launches,
                                           {"flash_attention": 120} if lr == 256 else {}, same, nondet, failures)
         res[f"sd_lr{lr}"]["traced"] = replay_trace_check(f"graphs SD LR {lr}", serve, counters, failures)
+
+        def serve_cb(seed, lr=lr):
+            seq = []
+            out = _sd_serve(sd, lr, GN_STEPS, generator=torch.Generator(device="cuda").manual_seed(seed),
+                            callback=lambda i, t, x: seq.append((i, t, tuple(x.shape))), callback_steps=1)[0]
+            return [out], seq
+
+        res[f"sd_lr{lr}_callback"] = _graph_path(
+            f"SD x4 ddim20 guidance 9 bf16 LR {lr} -> {4 * lr}, a callback every step", serve_cb, [sd._graphs],
+            GRAPH_ROUNDS["sd_callback"], counters, failures, {"flash_attention": 120} if lr == 256 else {})
         sd._graphs.clear()  # this size's pool back before the next
         torch.cuda.empty_cache()
     del sd
@@ -4452,6 +4693,8 @@ def phase_graphs(card):
     res["train"] = _graph_train(counters, failures)
     torch.cuda.empty_cache()
     res["wgan_gp"] = _graph_wgan(counters, failures)
+    torch.cuda.empty_cache()
+    res.update(_graph_whole(counters, failures, card))
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"graphs phase {res['phase_s']:.1f} s", flush=True)
     return res, failures

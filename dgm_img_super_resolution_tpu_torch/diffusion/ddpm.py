@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from dgm_img_super_resolution_tpu_torch.core import graphs
 from dgm_img_super_resolution_tpu_torch.diffusion.gaussian import as_noise_hook
 from dgm_img_super_resolution_tpu_torch.diffusion.schedule import Schedule
 from dgm_img_super_resolution_tpu_torch.utils.draws import randint, randn
@@ -32,6 +33,7 @@ class DDPM(nn.Module):
         self.num_timesteps = schedule.num_timesteps
         self.clip_denoised = clip_denoised
         self._buffers_on: dict[torch.device, dict[str, torch.Tensor]] = {}
+        self._graphs = graphs.GraphCache()  # the captured samplers, by shape
 
     def _rows(self, name: str, t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """Buffer ``name`` at per-row timesteps ``t`` as (B, 1, 1, 1), read
@@ -78,10 +80,25 @@ class DDPM(nn.Module):
     @torch.no_grad()
     def sample(self, shape, noise=None, generator: torch.Generator | None = None):
         """Ancestral sampling of ``shape`` (N, C, H, W) over all T steps, on
-        the model's device."""
+        the model's device. On the card the whole chain is one captured
+        graph per shape, noise signature and the model's tensors' addresses
+        (``core/graphs.py``; JAX's ``lax.scan`` over T,
+        ``diffusion/ddpm.py:66-76``), captured at a key's second call
+        (``on_repeat``: a one-off sample pays no capture) and replayed from
+        the third; eager on the CPU, under ``graphs.eager()`` and for a
+        callable hook."""
         device = next(self.model.parameters()).device
-        hook = as_noise_hook(noise, tuple(shape), device, generator)
-        x = hook(None).to(device, torch.float32)
-        for t in range(self.num_timesteps - 1, -1, -1):
-            x = self.p_sample_step(x, t, hook(t) if t > 0 else None)
-        return x
+        shape = tuple(shape)
+        noise_in = {} if noise is None else graphs.tensor_inputs("noise", noise)
+
+        def chain(inputs, g):
+            hook = as_noise_hook(graphs.rebuild("noise", noise, inputs) if noise_in else noise, shape, device, g)
+            x = hook(None).to(device, torch.float32)
+            for t in range(self.num_timesteps - 1, -1, -1):
+                x = self.p_sample_step(x, t, hook(t) if t > 0 else None)
+            return x
+
+        if noise_in is None or not graphs.enabled(device):
+            return chain(noise_in or {}, generator)
+        key = ("sample", shape, graphs.signature(noise), graphs.storage_key(self.model))
+        return self._graphs.run(key, chain, noise_in, generator, on_repeat=True)

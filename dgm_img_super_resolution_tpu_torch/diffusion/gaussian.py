@@ -359,9 +359,10 @@ class GaussianDiffusion(nn.Module):
         """Latent mixing between two HR images x1, x2 (NCHW, [-1, 1])
         conditioned on ``img_lr`` (reference ``model.py:1093-1116``):
         ``(1 - lam) q(x1, t) + lam q(x2, t)``, then the ancestral chain
-        from t-1 to 0. ``noise``: ``(eps_1, eps_2, {t: eps_t})`` for the
-        two ``q_sample`` draws and the steps; ``None`` draws them from
-        ``generator``."""
+        from t-1 to 0. ``lam``: a float or a 0-d tensor, taken as float32
+        on x1's device, as JAX's traced weight. ``noise``: ``(eps_1, eps_2,
+        {t: eps_t})`` for the two ``q_sample`` draws and the steps; ``None``
+        draws them from ``generator``."""
         b = x1.shape[0]
         t = self.num_timesteps - 1 if t is None else int(t)
         if noise is None:
@@ -374,11 +375,11 @@ class GaussianDiffusion(nn.Module):
             hook = lambda ti: steps[int(ti)]  # noqa: E731
         _, cond = self.rrdb_cond(img_lr, img_lr_up)
         cond = self.denoise_fn.project(cond, img_lr_up)
-        tb = torch.full((b,), t, dtype=torch.long)
+        tb = torch.full((b,), t, dtype=torch.long, device=x1.device)
         xt1 = self.q_sample(self.img2res(x1, img_lr_up), tb, e1.to(x1.device, torch.float32))
         xt2 = self.q_sample(self.img2res(x2, img_lr_up), tb, e2.to(x1.device, torch.float32))
-        lam32 = np.float32(lam)  # the mixing weights in float32, as JAX's
-        x = float(np.float32(1.0) - lam32) * xt1 + float(lam32) * xt2
+        lam = torch.as_tensor(lam, dtype=torch.float32, device=x1.device)  # the mixing weights in float32
+        x = (1.0 - lam) * xt1 + lam * xt2
         x = self.sample_segment(x, cond, img_lr_up, range(t - 1, -1, -1), hook)
         return self.res2img(x, img_lr_up)
 

@@ -30,10 +30,15 @@ card it is captured as one CUDA graph per call shape and static arguments
 (``core/graphs.py``; the key: batch, LR size, input dtype, ``as_uint8``,
 sampler, steps, eta, ``enc_interval``, the noise's shapes, the kernel
 routing), replayed from the second call on; sub-batches and tiles replay
-their chunk's graph. These stay eager by design: the progress path (its
-callback runs on the host between segments), a world above 1 (gloo's
-collectives run through the host), a noise hook that is a callable, and
-everything under ``graphs.eager()`` or on the CPU.
+their chunk's graph. With a progress callback the same serve is a
+segmented program (``_segmented``, JAX's ``_segment_fns``): a graph for
+the prologue, one a segment of ``callback_steps`` steps and one for the
+epilogue, the callback on the host between them, keyed as the program
+plus ``callback_steps``. ``interpolate`` is one graph per HR shape and
+``t`` (JAX's ``_interp_fn``), captured at a shape's second call. These
+stay eager by design: a world above 1
+(gloo's collectives run through the host), a noise hook that is a
+callable, and everything under ``graphs.eager()`` or on the CPU.
 
 Noise. A request served in one call takes a noise hook (see
 ``diffusion/gaussian.py``) or draws from a generator. A request served in
@@ -274,8 +279,10 @@ class SRDiffPipeline:
         hr = ((h + ph) * scale, (w + pw) * scale)
         if isinstance(noise, ChunkNoise):
             noise = noise.hook((n, 3) + hr)
-        if self.mesh.world == 1 and progress_cb is None:
-            return self._program(x.to(self.device), gen, noise, as_uint8)
+        if self.mesh.world == 1:
+            if progress_cb is None:
+                return self._program(x.to(self.device), gen, noise, as_uint8)
+            return self._segmented(x.to(self.device), gen, noise, as_uint8, progress_cb, callback_steps)
         # JAX's fast path also wants the unpadded rows to split (inference.py:350)
         fast_ok = progress_cb is not None or ph == 0 or spatial_shardable(h, self.mesh)
         spatial = fast_ok and self._spatial_serving(n, h + ph)
@@ -302,7 +309,13 @@ class SRDiffPipeline:
             if spatial:
                 stack.enter_context(row_split(self.mesh))
                 stack.enter_context(kernels_disabled())
-            img = self._sample(x, img_lr_up, gen, noise, progress_cb, callback_steps)
+            if progress_cb is None:
+                img = self._sample(x, img_lr_up, gen, noise)
+            else:
+                fns, after = self._sampler_pieces(lambda inputs, _, g: self._prepare(x, img_lr_up, noise, g),
+                                                  lambda inputs, st, g: self.model.res2img(st[0], st[2]),
+                                                  lambda inputs: noise, progress_cb, callback_steps)
+                img = graphs.run_pieces(fns, {}, gen, after)
         out = (img * 0.5 + 0.5).clamp(0.0, 1.0)
         out = gather_image_rows(out, hr_rows, self.mesh) if spatial else gather_rows(out, rows, self.mesh)
         return self._sr_out(out, h, w, as_uint8)
@@ -334,8 +347,41 @@ class SRDiffPipeline:
         h, w = (int(v) for v in x.shape[1:3])
         x = self._lr_in(x)
         img_lr_up = resize(x, tuple(v * self.hp["sr_scale"] for v in x.shape[2:]), variant="torch")
-        img = self._sample(x, img_lr_up, gen, noise, None, 1)
+        img = self._sample(x, img_lr_up, gen, noise)
         return self._sr_out((img * 0.5 + 0.5).clamp(0.0, 1.0), h, w, as_uint8)
+
+    def _segmented(self, x, gen, noise, as_uint8: bool, progress_cb: ProgressCb, callback_steps: int):
+        """The progress path on this card, JAX's ``_segment_fns`` and
+        ``_run_segmented`` (``inference.py:141-211``): the serve of
+        :meth:`_serve_fn` with the exact sampler (``enc_interval`` 1) cut
+        every ``callback_steps`` steps, ``progress_cb(done, total)`` on the
+        host after each segment. On the card one segmented program per call
+        shape (``core/graphs.py``: the prologue (pad, bicubic, RRDB, cond
+        projection, x_T), a graph a segment, the epilogue), replayed from
+        the second call on; eager where :meth:`_program` is."""
+        h, w = (int(v) for v in x.shape[1:3])
+        noise_in = {} if noise is None else graphs.tensor_inputs("noise", noise)
+
+        def noise_of(inputs):
+            return noise if noise is None or noise_in is None else graphs.rebuild("noise", noise, inputs)
+
+        def prep(inputs, _, g):
+            lr = self._lr_in(inputs["x"])
+            up = resize(lr, tuple(v * self.hp["sr_scale"] for v in lr.shape[2:]), variant="torch")
+            return self._prepare(lr, up, noise_of(inputs), g)
+
+        def finish(inputs, st, g):
+            return self._sr_out((self.model.res2img(st[0], st[2]) * 0.5 + 0.5).clamp(0.0, 1.0), h, w, as_uint8)
+
+        fns, after = self._sampler_pieces(prep, finish, noise_of, progress_cb, callback_steps)
+        inputs = {"x": x, **(noise_in or {})}
+        if not graphs.enabled(self.device) or noise_in is None:
+            return graphs.run_pieces(fns, inputs, gen, after)
+        hp = self.hp
+        key = ("progress", tuple(x.shape), x.dtype, as_uint8, graphs.signature(noise), hp.get("sampler", "ddpm"),
+               hp.get("sample_timesteps", 0), float(hp.get("ddim_eta", 0.0)), max(1, int(callback_steps)),
+               routing_key())
+        return self._graphs.run_program(key, fns, inputs, gen, after)
 
     def _lr_in(self, x) -> torch.Tensor:
         """The NHWC uint8 [0, 255] or float [-1, 1] LR batch -> NCHW float32
@@ -357,35 +403,52 @@ class SRDiffPipeline:
         out = out[:, :, : h * scale, : w * scale].permute(0, 2, 3, 1)
         return torch.round(out * 255.0).to(torch.uint8) if as_uint8 else out
 
-    def _sample(self, x, img_lr_up, gen, noise, progress_cb, callback_steps) -> torch.Tensor:
-        """The sampler from the LR and its bicubic (NCHW) to the image in
-        [-1, 1]: in one go, or in segments of ``callback_steps`` steps."""
+    def _sample(self, x, img_lr_up, gen, noise) -> torch.Tensor:
+        """The sampler in one go from the LR and its bicubic (NCHW) to the
+        image in [-1, 1]."""
+        d = self.model
+        if self.hp.get("sampler", "ddpm") == "ddim":
+            return d.ddim_sample(x, img_lr_up, num_steps=self.hp.get("sample_timesteps", 0) or None,
+                                 eta=float(self.hp.get("ddim_eta", 0.0)), noise=noise, generator=gen,
+                                 enc_interval=int(self.hp.get("enc_interval", 1) or 1))[0]
+        return d.sample(x, img_lr_up, noise=noise, generator=gen)[0]
+
+    def _prepare(self, x, img_lr_up, noise, gen) -> tuple:
+        """The sampler's state before its first step: (x_T, the projected
+        cond, the bicubic)."""
+        xt, cond, _, _ = self.model.sample_prepare(x, img_lr_up, noise, gen)
+        return xt, cond, img_lr_up
+
+    def _sampler_pieces(self, prep: Callable, finish: Callable, noise_of: Callable, progress_cb: ProgressCb,
+                        callback_steps: int) -> tuple[list, list]:
+        """The exact sampler in segments of ``callback_steps`` steps as the
+        pieces of ``graphs.run_pieces`` / ``GraphCache.run_program``:
+        ``prep`` -> (x_T, cond, bicubic), a piece a segment, ``finish``;
+        ``progress_cb(done, total)`` after each segment. A segment asks
+        ``noise_of(inputs)`` for its noise, each step's by its timestep."""
         d = self.model
         ddim = self.hp.get("sampler", "ddpm") == "ddim"
         eta = float(self.hp.get("ddim_eta", 0.0))
-        num_steps = self.hp.get("sample_timesteps", 0) or None
-        if progress_cb is None:
-            if ddim:
-                return d.ddim_sample(x, img_lr_up, num_steps=num_steps, eta=eta, noise=noise, generator=gen,
-                                     enc_interval=int(self.hp.get("enc_interval", 1) or 1))[0]
-            return d.sample(x, img_lr_up, noise=noise, generator=gen)[0]
-        # the exact sampler in segments of callback_steps steps
         if ddim:
-            ts, ts_prev = d.ddim_timesteps(num_steps)
+            ts, ts_prev = d.ddim_timesteps(self.hp.get("sample_timesteps", 0) or None)
         else:
             ts = list(range(d.num_timesteps - 1, -1, -1))
             ts_prev = [t - 1 for t in ts]
-        xt, cond, _, hook = d.sample_prepare(x, img_lr_up, noise, gen)
-        step, done = max(1, int(callback_steps)), 0
-        while done < len(ts):
-            seg = slice(done, min(done + step, len(ts)))
-            if ddim:
-                xt = d.ddim_segment(xt, cond, img_lr_up, ts[seg], ts_prev[seg], hook, eta)
-            else:
-                xt = d.sample_segment(xt, cond, img_lr_up, ts[seg], hook)
-            done = seg.stop
-            progress_cb(done, len(ts))
-        return d.res2img(xt, img_lr_up)
+        bounds = list(range(0, len(ts), max(1, int(callback_steps)))) + [len(ts)]
+
+        def segment(a: int, b: int) -> Callable:
+            def fn(inputs, st, g):
+                xt, cond, up = st
+                hook = as_noise_hook(noise_of(inputs), tuple(up.shape), up.device, g)
+                if ddim:
+                    return d.ddim_segment(xt, cond, up, ts[a:b], ts_prev[a:b], hook, eta), cond, up
+                return d.sample_segment(xt, cond, up, ts[a:b], hook), cond, up
+            return fn
+
+        segs = list(zip(bounds, bounds[1:]))
+        fns = [prep] + [segment(a, b) for a, b in segs] + [finish]
+        after = [None] + [lambda _, done=b: progress_cb(done, len(ts)) for _, b in segs] + [None]
+        return fns, after
 
     def upscale_batch(self, imgs, generator: torch.Generator | None = None, noise=None,
                       progress_cb: ProgressCb | None = None, callback_steps: int = 1) -> np.ndarray:
@@ -415,22 +478,40 @@ class SRDiffPipeline:
         LR of the first (MATLAB bicubic down by ``sr_scale``, torch bicubic
         back up). HWC uint8 or [-1, 1] float in; HWC float [0, 1] out.
         ``t`` defaults to T-1; ``noise`` as ``GaussianDiffusion.interpolate``
-        takes it (NCHW at the HR shape)."""
-        def pm1(img):
-            x = img if isinstance(img, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(img))
-            x = x.to(self.device)
-            x = uint8_to_pm1(x) if x.dtype == torch.uint8 else x.to(torch.float32)
-            return x.permute(2, 0, 1)[None]
-
-        x1, x2 = pm1(img1), pm1(img2)
-        h, w = x1.shape[-2:]
-        scale = self.hp["sr_scale"]
-        lr = resize(x1, (h // scale, w // scale), variant="matlab")
-        lr_up = resize(lr, (h, w), variant="torch")
+        takes it (NCHW at the HR shape). On the card one graph per HR shape,
+        dtype and ``t`` (JAX's ``_interp_fn(t)``, ``inference.py:418``),
+        ``lam`` a 0-d float32 input of it, as JAX traces it, so that a
+        caller's second call at another mixing weight replays. Captured at
+        a key's second call (``on_repeat``): the CLI's one ``interp`` call
+        runs eagerly."""
+        x1, x2 = (img if isinstance(img, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(img))
+                  for img in (img1, img2))
         t = self.hp["timesteps"] - 1 if t is None else int(t)
-        out = self.model.interpolate(x1, x2, lr, lr_up, t=t, lam=lam, noise=noise,
-                                     generator=generator or self.generator)
-        return (out * 0.5 + 0.5).clamp(0.0, 1.0)[0].permute(1, 2, 0).cpu().numpy()
+        gen = generator or self.generator
+        noise_in = {} if noise is None else graphs.tensor_inputs("noise", noise)
+        inputs = {"x1": x1.to(self.device), "x2": x2.to(self.device),
+                  "lam": torch.as_tensor(lam, dtype=torch.float32, device=self.device), **(noise_in or {})}
+
+        def fn(inputs, g):
+            def pm1(x):
+                x = uint8_to_pm1(x) if x.dtype == torch.uint8 else x.to(torch.float32)
+                return x.permute(2, 0, 1)[None]
+
+            a, b = pm1(inputs["x1"]), pm1(inputs["x2"])
+            h, w = a.shape[-2:]
+            scale = self.hp["sr_scale"]
+            lr = resize(a, (h // scale, w // scale), variant="matlab")
+            lr_up = resize(lr, (h, w), variant="torch")
+            nz = noise if not noise_in else graphs.rebuild("noise", noise, inputs)
+            out = self.model.interpolate(a, b, lr, lr_up, t=t, lam=inputs["lam"], noise=nz, generator=g)
+            return (out * 0.5 + 0.5).clamp(0.0, 1.0)[0].permute(1, 2, 0)
+
+        if not graphs.enabled(self.device) or noise_in is None:
+            out = fn(inputs, gen)
+        else:
+            key = ("interp", tuple(x1.shape), x1.dtype, x2.dtype, t, graphs.signature(noise), routing_key())
+            out = self._graphs.run(key, fn, inputs, gen, on_repeat=True)
+        return out.cpu().numpy()
 
     @torch.inference_mode()
     def upscale_large_device(self, image, patch: int = 64, overlap: int = 0,

@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dgm_img_super_resolution_tpu_torch.core import graphs
 from dgm_img_super_resolution_tpu_torch.core.device import resolve_device
 
 _SHIFT = (-0.030, -0.088, -0.188)
@@ -79,13 +80,19 @@ class _LPIPSNet(nn.Module):
 
 
 class LPIPS:
-    """Weight-gated LPIPS scorer over uint8 HWC or [-1, 1] float images."""
+    """Weight-gated LPIPS scorer over uint8 HWC or [-1, 1] float images. On
+    the card the network is one captured graph per pair of image shapes
+    (JAX's ``jax.jit``, ``metrics/lpips.py:82``) and the network's tensors'
+    addresses, captured at a key's second call (``on_repeat``: images of a
+    size scored once pay no capture) and replayed from the third; eager on
+    the CPU and under ``graphs.eager()``."""
 
     def __init__(self, state_dict: dict, device: str | torch.device | None = None):
         self.device = resolve_device(device)
         self.net = _LPIPSNet()
         self.net.load_state_dict(state_dict, strict=True)
         self.net.to(self.device).eval().requires_grad_(False)
+        self._graphs = graphs.GraphCache()
 
     @classmethod
     def maybe_create(cls, weights_path: str | None, device: str | torch.device | None = None) -> "LPIPS | None":
@@ -110,4 +117,9 @@ class LPIPS:
 
     @torch.inference_mode()
     def __call__(self, img_a, img_b) -> float:
-        return float(self.net(self._prep(img_a), self._prep(img_b))[0])
+        a, b = self._prep(img_a), self._prep(img_b)
+        if not graphs.enabled(self.device):
+            return float(self.net(a, b)[0])
+        key = (tuple(a.shape), tuple(b.shape), graphs.storage_key(self.net))
+        return float(self._graphs.run(key, lambda inputs, g: self.net(inputs["a"], inputs["b"]), {"a": a, "b": b},
+                                      on_repeat=True)[0])

@@ -5,13 +5,17 @@ CLIP text encode (cond and uncond) -> noise-augment the LR image on the
 low-res DDPM schedule -> denoising loop over latents with the LR image
 concatenated on channels -> VAE decode to x4 resolution, NHWC float [0, 1].
 
-The serve is one program (``_upscale_fn``: the CLIP encode of the token
-ids, the loop, the VAE decode), captured on the card as one CUDA graph per
-call shape (``core/graphs.py``; JAX's ``_denoise_segment`` jits the loop):
-the key is the batch, the LR size, the steps, guidance, noise level, eta,
-``enc_interval`` and the noise's shapes; the token ids, of the prompts and
-the negative prompts alike, are a static input. The callback path, a noise
-hook that is not tensors, ``graphs.eager()`` and the CPU run it eagerly.
+The serve is one program (``_pieces``: the CLIP encode of the token ids
+and ``_prepare``, the loop, the VAE decode), captured on the card as one
+CUDA graph per call shape (``core/graphs.py``; JAX jits ``_encode_tokens``,
+``_prepare``, ``_denoise_segment`` and the decode): the key is the batch,
+the LR size, the steps, guidance, noise level, eta, ``enc_interval`` and
+the noise's shapes; the token ids, of the prompts and the negative prompts
+alike, are a static input. With a callback the loop is cut where the
+callback fires, and the serve is one segmented program (a graph a piece,
+the callback on the host between them), keyed as without one plus
+``callback_steps``, in the same cache and pool. A noise hook that is not
+tensors, ``graphs.eager()`` and the CPU run the same pieces eagerly.
 The loop makes one UNet call per step: classifier-free
 guidance is a doubled batch through that call, its unconditional half
 encoding the negative prompt (empty by default); the published model
@@ -247,54 +251,82 @@ class StableDiffusionUpscalePipeline:
         args = (int(num_inference_steps), float(guidance_scale), int(noise_level), float(eta),
                 max(1, int(enc_interval)) if callback is None else 1)
         noise_in = {} if noise is None else graphs.tensor_inputs("noise", noise)
-        if callback is not None or noise_in is None or not graphs.enabled(self.device):
-            return self._upscale_fn(ids, img, gen, noise, args, callback, callback_steps)
+
+        def noise_of(inputs):
+            return noise if noise is None or noise_in is None else graphs.rebuild("noise", noise, inputs)
+
+        fns, after = self._pieces(args, noise_of, callback, callback_steps)
+        inputs = {"ids": ids, "image": img, **(noise_in or {})}
+        if noise_in is None or not graphs.enabled(self.device):
+            return graphs.run_pieces(fns, inputs, gen, after)
         key = ("sd", tuple(img.shape), img.dtype, tuple(ids.shape), graphs.signature(noise), args)
+        if callback is None:
+            return self._graphs.run(key, lambda inputs, g: graphs.run_pieces(fns, inputs, g, after), inputs, gen)
+        return self._graphs.run_program(key + (max(1, int(callback_steps)),), fns, inputs, gen, after)
 
-        def fn(inputs, g):
-            nz = None if noise is None else graphs.rebuild("noise", noise, inputs)
-            return self._upscale_fn(inputs["ids"], inputs["image"], g, nz, args)
-
-        return self._graphs.run(key, fn, {"ids": ids, "image": img, **noise_in}, gen)
-
-    def _upscale_fn(self, ids, img, gen, noise, args, callback: Callable | None = None, callback_steps: int = 1):
-        """What :meth:`upscale_device` runs, one program from the token ids
-        and the NHWC LR batch on the device to the x4 batch: the CLIP
-        encode, the denoise loop, the VAE decode. ``args``: (steps,
-        guidance, noise level, eta, enc_interval)."""
+    def _pieces(self, args, noise_of: Callable, callback: Callable | None = None,
+                callback_steps: int = 1) -> tuple[list, list]:
+        """The serve from the token ids and the NHWC LR batch on the device
+        to the x4 batch, as the pieces of ``graphs.run_pieces`` /
+        ``GraphCache.run_program``: the CLIP encode and ``_prepare``, the
+        denoise loop in segments that end where the callback fires (one
+        segment without a callback), the VAE decode; ``callback(i, t,
+        latents)`` after each segment, the latents a clone. ``args``:
+        (steps, guidance, noise level, eta, enc_interval); ``noise_of(inputs)``
+        the noise (None, or the hook of tensors on the inputs)."""
         steps, gs, noise_level, eta, K = args
-        img = img.float() / 127.5 - 1.0 if img.dtype == torch.uint8 else img.float()
-        img = img.permute(0, 3, 1, 2)
-        n = img.shape[0]
-        states = self.text_encoder(ids)
-        cond, uncond = states[:n], states[n:]
-
         # diffusers "leading" spacing: for T=1000 and 20 steps 951, 901, ..., 1
         T = self.schedule.num_timesteps
         ratio = T // steps
         if ratio < 1:
             raise ValueError(f"num_inference_steps {steps} > trained T {T}")
-        ts = (np.arange(steps) * ratio)[::-1] + self.steps_offset
-        x, img_aug = self._prepare(img, noise_level, noise, gen)
-        ctx = cond if gs == 1.0 else torch.cat([cond, uncond])
-        nl = torch.full((ctx.shape[0],), noise_level, dtype=torch.long, device=self.device)
+        ts = [int(t) for t in (np.arange(steps) * ratio)[::-1] + self.steps_offset]
         every = max(1, int(callback_steps))
-        enc = None
-        for i, t in enumerate(int(t) for t in ts):
-            if i < steps // K * K and K > 1:
-                if i % K == 0:
-                    enc = self._model_out(x, t, img_aug, ctx, nl, gs, mode="encode")
-                out = self._model_out(None, t, None, ctx, nl, gs, mode="decode", enc=enc)
-            else:
-                out = self._model_out(x, t, img_aug, ctx, nl, gs)
-            z = None
-            if eta:
-                z = torch.randn(x.shape, generator=gen, device=self.device) if noise is None \
-                    else noise[2][t].to(self.device, torch.float32)
-            x = self._update(x, t, t - ratio, out, eta, z)
-            if callback is not None and ((i + 1) % every == 0 or i == steps - 1):
-                callback(i, t, x)
-        return (self._decode(x) * 0.5 + 0.5).permute(0, 2, 3, 1)
+        stops = [i + 1 for i in range(steps) if (i + 1) % every == 0 or i == steps - 1] \
+            if callback is not None else [steps]
+
+        def prep(inputs, _, gen):
+            img = inputs["image"]
+            img = img.float() / 127.5 - 1.0 if img.dtype == torch.uint8 else img.float()
+            img = img.permute(0, 3, 1, 2)
+            n = img.shape[0]
+            states = self.text_encoder(inputs["ids"])
+            cond, uncond = states[:n], states[n:]
+            x, img_aug = self._prepare(img, noise_level, noise_of(inputs), gen)
+            ctx = cond if gs == 1.0 else torch.cat([cond, uncond])
+            nl = torch.full((ctx.shape[0],), noise_level, dtype=torch.long, device=self.device)
+            return x, img_aug, ctx, nl
+
+        def segment(a: int, b: int) -> Callable:
+            def fn(inputs, st, gen):
+                x, img_aug, ctx, nl = st
+                noise = noise_of(inputs)
+                enc = None
+                for i in range(a, b):
+                    t = ts[i]
+                    if i < steps // K * K and K > 1:
+                        if i % K == 0:
+                            enc = self._model_out(x, t, img_aug, ctx, nl, gs, mode="encode")
+                        out = self._model_out(None, t, None, ctx, nl, gs, mode="decode", enc=enc)
+                    else:
+                        out = self._model_out(x, t, img_aug, ctx, nl, gs)
+                    z = None
+                    if eta:
+                        z = torch.randn(x.shape, generator=gen, device=self.device) if noise is None \
+                            else noise[2][t].to(self.device, torch.float32)
+                    x = self._update(x, t, t - ratio, out, eta, z)
+                return x, img_aug, ctx, nl
+            return fn
+
+        def finish(inputs, st, gen):
+            return (self._decode(st[0]) * 0.5 + 0.5).permute(0, 2, 3, 1)
+
+        fns = [prep] + [segment(a, b) for a, b in zip([0] + stops, stops)] + [finish]
+        after = [None] * len(fns)
+        if callback is not None:
+            for k, b in enumerate(stops):
+                after[k + 1] = lambda st, i=b - 1: callback(i, ts[i], st[0].clone())
+        return fns, after
 
     def __call__(self, prompt, image, **kwargs) -> np.ndarray:
         """As :meth:`upscale_device`, returned on the host as numpy."""

@@ -70,7 +70,7 @@ class GANState:
     gen_opt: torch.optim.Adam
     disc_opt: torch.optim.Adam
     step: int = 0
-    graphs: GraphCache = dataclasses.field(default_factory=GraphCache)  # the captured rounds (jitted_step)
+    graphs: GraphCache = dataclasses.field(default_factory=GraphCache)  # the captured rounds and val_steps
 
 
 def _bce_logits(logits: torch.Tensor, target_ones: bool) -> torch.Tensor:
@@ -253,8 +253,25 @@ class GANTask:
     def val_step(self, state: GANState, real, generator: torch.Generator | None = None, noise=None) -> dict:
         """The round's losses without updates, both models in eval mode
         (the reference's ``val_step``, wgan-gp.ipynb cell 37); draws
-        ``("z", 0)`` and ``("eps", 0)``."""
+        ``("z", 0)`` and ``("eps", 0)``. On the card one captured graph per
+        batch shape and the models' tensors' addresses (JAX's
+        ``jax.jit(self.val_step)``, ``gan.py:250``), kept on the state
+        beside the rounds'; eager where :meth:`jitted_step` is."""
         real = self._real(real)
+        state.gen.eval()
+        state.disc.eval()
+        noise_in = {} if noise is None else graphs.tensor_inputs("noise", noise)
+        if noise_in is None or not graphs.enabled(self.device):
+            return self._val(state, real, generator, noise)
+
+        def fn(inputs, g):
+            return self._val(state, inputs["real"], g, None if noise is None else graphs.rebuild("noise", noise, inputs))
+
+        key = ("val", tuple(real.shape), real.dtype, graphs.signature(noise),
+               graphs.storage_key(state.gen, state.disc))
+        return state.graphs.run(key, fn, {"real": real, **noise_in}, generator)
+
+    def _val(self, state: GANState, real: torch.Tensor, generator, noise) -> dict:
         n = real.shape[0]
         draw = _draw_fn(noise, generator, self.device)
         gen, disc = state.gen, state.disc

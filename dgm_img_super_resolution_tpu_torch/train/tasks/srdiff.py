@@ -14,10 +14,13 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from dgm_img_super_resolution_tpu_torch.core import graphs
 from dgm_img_super_resolution_tpu_torch.core.config import Hparams
 from dgm_img_super_resolution_tpu_torch.diffusion.gaussian import GaussianDiffusion
 from dgm_img_super_resolution_tpu_torch.models.factory import build_srdiff, init_srdiff_params
+from dgm_img_super_resolution_tpu_torch.models.layers import routing_key
 from dgm_img_super_resolution_tpu_torch.train.trainer import Trainer, TrainState, batch_to_device
 
 
@@ -66,24 +69,44 @@ class SRDiffTask:
         i; with ``sample_metrics`` also PSNR and SSIM (the port's ``Measure``)
         of the T-step ancestral ``sample`` of the first batch's first four
         images (the reference's ``valid_monitor_key: val_loss`` and sample
-        machinery, config.yaml:37-38,76-79)."""
+        machinery, config.yaml:37-38,76-79). On the card at world 1 the
+        loss and the sample are captured graphs (JAX's ``val_loss_fn`` and
+        ``sample_fn``, ``train/tasks/srdiff.py:96-102``), one per batch
+        shape, kept by the returned function and keyed by the model's
+        tensors' addresses too (:func:`graphs.storage_key`): an update in
+        place is read by the next replay, a model swapped captures anew."""
         n_batches = min(len(val_batches), int(self.hp.get("valid_steps", 4)))
+        cache = graphs.GraphCache()
+
+        def run(name, fn, model, batch, dev, seed):
+            """``fn(model, batch, generator)`` through the cache's graph."""
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            batch = {k: batch[k] for k in ("hr", "lr", "lr_up")}
+            if not graphs.enabled(dev) or (dist.is_initialized() and dist.get_world_size() > 1):
+                return fn(model, batch, gen)
+            key = (name, graphs.signature(batch), graphs.storage_key(model), routing_key())
+            return cache.run(key, lambda inputs, g: fn(model, graphs.rebuild("batch", batch, inputs), g),
+                             graphs.tensor_inputs("batch", batch), gen)
+
+        def loss(model, b, g):
+            return self.loss_fn(model, b, g)[0]
+
+        def sample(model, b, g):
+            return model.sample(b["lr"], b["lr_up"], generator=g)[0]
 
         @torch.no_grad()
         def val_fn(state: TrainState) -> dict:
             model = state.model
             dev = next(model.parameters()).device
-            losses = []
-            for i in range(n_batches):
-                b = batch_to_device(val_batches[i], dev)
-                losses.append(float(self.loss_fn(model, b, torch.Generator(device=dev).manual_seed(i))[0]))
+            losses = [float(run("loss", loss, model, batch_to_device(val_batches[i], dev), dev, i))
+                      for i in range(n_batches)]
             out = {"loss": float(np.mean(losses))}
             if sample_metrics:
                 from dgm_img_super_resolution_tpu_torch.metrics.measure import Measure
 
                 measure = Measure(device=dev)
                 b = batch_to_device(val_batches[0], dev)
-                sr, _ = model.sample(b["lr"], b["lr_up"], generator=torch.Generator(device=dev).manual_seed(0))
+                sr = run("sample", sample, model, b, dev, 0)
                 hwc = lambda x, j: x[j].permute(1, 2, 0).float()  # noqa: E731
                 res = [measure.measure(hwc(sr, j), hwc(b["hr"], j), hwc(b["lr"], j), self.hp["sr_scale"])
                        for j in range(min(4, sr.shape[0]))]
@@ -91,4 +114,5 @@ class SRDiffTask:
                 out["ssim"] = float(np.mean([r["ssim"] for r in res]))
             return out
 
+        val_fn.graphs = cache
         return val_fn
