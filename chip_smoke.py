@@ -100,7 +100,9 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    to 0 just before each timed serve and read just after.
 9. The published-width UNet in float32 on the card and on the CPU at latent
    32x32 (plain attention), and one level-3 Transformer2D on 32x32 tokens
-   (the flash kernel on the card, its plain version on the CPU).
+   (the flash kernel on the card, its plain version on the CPU); the
+   published-width VAE's ``forward(x, noise=...)`` (the sampled posterior's
+   decode) at 64x64.
 10. From a checkpoint file to a scored image (``phase_checkpoint_cli``): an
    upstream-format SRDiff checkpoint of the full-width model (seeded random
    weights, the diffusion buffers beside them) loaded by
@@ -137,8 +139,10 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    (``phase_sampler_api``), float32 card vs CPU: ``sample(...,
    save_intermediate=True)`` (the image, each step's image and x0) and
    ``p_sample`` at per-row timesteps on a small model (hidden 16, T = 8, HR
-   64), and the published-width SD UNet with ``num_class_embeds=None`` and
-   class labels (the timestep-style class embedding) at latent 32x32.
+   64), ``ddim_sample(shape=...)`` at the full width (two draws for a
+   batch-1 condition, 4 steps: 4 launches each of rows 1-3), and the
+   published-width SD UNet with ``num_class_embeds=None`` and class labels
+   (the timestep-style class embedding) at latent 32x32.
 14. The educational models (``phase_edu``) at the JAX defaults' widths on
    ``synthetic_mnist``: for the AE, VAE, DDPM, simple GAN, DCGAN and
    WGAN-GP tasks, one float32 loss and its gradients card vs CPU (a GAN's
@@ -148,6 +152,12 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    card at batch 128 (the DDPM at 64); ``GANTask.fit`` with validation and
    its model IO round trip; the VAE and DDPM samplers (T = 250, batch 16;
    phase_graphs replays the DDPM chain) timed. Every kernel counter must read 0 across the phase.
+   Then the example scripts (``phase_examples``, ``examples_torch/``) through
+   their ``main`` on the card at JAX's default widths (batch 128, VAE
+   latent 16, DDPM dim 64 and T = 1000), 100 steps each: ``train_vae``
+   with the VAE and the AE, ``train_gan`` for the three kinds,
+   ``train_ddpm``; each grid at JAX's name and size, finite losses, 0
+   launches of every kernel, wall s and steps/s.
 15. The native imresize (``phase_native``): the port's C++ library builds
    on the card's host, ``imresize`` takes it by default and equals the
    matrix path (uint8 exactly, float64 to 1e-12), and ``Measure.measure``
@@ -2188,14 +2198,16 @@ def phase_sd_options(rows):
 
 def phase_sd_card_vs_cpu():
     """The published-width UNet in float32 on the card and on the CPU at
-    latent 32x32 (plain attention: level 3 is 4x4), and its first level-3
-    Transformer2D on 32x32 tokens (the flash kernel on the card)."""
+    latent 32x32 (plain attention: level 3 is 4x4), its first level-3
+    Transformer2D on 32x32 tokens (the flash kernel on the card), and the
+    VAE's ``forward`` with the posterior's noise passed in (C9)."""
     import numpy as np
     import torch
 
-    from dgm_img_super_resolution_tpu_torch.ckpt.sd_inventory import X4_UNET_CONFIG
+    from dgm_img_super_resolution_tpu_torch.ckpt.sd_inventory import X4_UNET_CONFIG, X4_VAE_CONFIG
     from dgm_img_super_resolution_tpu_torch.models.sd.pipeline import init_sd_params
     from dgm_img_super_resolution_tpu_torch.models.sd.unet import UNet2DCondition
+    from dgm_img_super_resolution_tpu_torch.models.sd.vae import AutoencoderKL
     from dgm_img_super_resolution_tpu_torch.ops.kernels import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2238,6 +2250,28 @@ def phase_sd_card_vs_cpu():
         res["transformer2d"] = {"max_abs_err": err, "rel_err": rel, "flash_launches": n}
         if not ok:
             failures.append("SD card vs CPU Transformer2D")
+    del cpu, gpu
+
+    cpu = AutoencoderKL(X4_VAE_CONFIG).eval()
+    init_sd_params(cpu, seed=5)
+    with torch.device("cuda"):
+        gpu = AutoencoderKL(X4_VAE_CONFIG).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    img = torch.rand(2, 3, 64, 64, generator=g) * 2 - 1
+    side = 64 // 2 ** (len(X4_VAE_CONFIG["block_out_channels"]) - 1)  # the latent's: f = 4
+    eps = torch.randn(2, X4_VAE_CONFIG["latent_channels"], side, side, generator=g)
+    with torch.inference_mode():
+        want, mean = cpu(img, noise=eps), cpu(img)
+        got = gpu(img.cuda(), noise=eps.cuda()).cpu()
+        err, rel = rel_err(got, want)
+        moved = float((want - mean).abs().max())
+        ok = rel <= F32_TOL and bool(torch.isfinite(got).all()) and moved > 0
+        print(f"card vs CPU, f32 SD VAE published widths forward(x, noise) (the sampled posterior's decode) "
+              f"64x64 B=2: max_abs_err {err:.3e} rel {rel:.3e} (tol {F32_TOL}); the draw moved the output from "
+              f"the mean's by {moved:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+        res["vae_forward_noise"] = {"max_abs_err": err, "rel_err": rel, "moved_from_mean": moved}
+        if not ok:
+            failures.append("SD card vs CPU VAE forward with noise")
     del cpu, gpu
     torch.cuda.empty_cache()
     return res, failures
@@ -4015,6 +4049,89 @@ def phase_edu(rows, card, dev="cuda"):
     return res, failures
 
 
+# The example scripts (phase_examples) at JAX's default widths and batch, EXAMPLE_STEPS steps each (cut
+# from the scripts' default 500): (script, arguments, grid, its side). The first run draws the scripts'
+# default synthetic set; the others read the same 8192 images from an MNIST IDX directory.
+EXAMPLE_STEPS = 100
+EXAMPLES = (("train_vae", ["--model", "vae"], "vae_samples.png", 128),
+            ("train_vae", ["--model", "ae"], "ae_recon.png", 128),
+            ("train_gan", ["--kind", "gan"], f"gan_samples_{EXAMPLE_STEPS}.png", 112),
+            ("train_gan", ["--kind", "dcgan"], f"dcgan_samples_{EXAMPLE_STEPS}.png", 112),
+            ("train_gan", ["--kind", "wgan-gp"], f"wgan-gp_samples_{EXAMPLE_STEPS}.png", 112),
+            ("train_ddpm", [], "ddpm_samples.png", 128))
+
+
+def _write_idx(d, images, labels):
+    """MNIST's IDX files of ``images`` (N, 28, 28) uint8 under ``d``."""
+    import struct
+
+    import numpy as np
+
+    (d / "train-images-idx3-ubyte").write_bytes(struct.pack(">4I", 0x0803, *images.shape) + images.tobytes())
+    (d / "train-labels-idx1-ubyte").write_bytes(struct.pack(">2I", 0x0801, len(labels))
+                                                + labels.astype(np.uint8).tobytes())
+
+
+def phase_examples(rows, card):
+    """Each example script's ``main`` on the card (``--device`` left at its
+    default): its grid at JAX's name and size, its logged losses finite, no
+    port kernel launched; the wall s and the steps/s it reports (the
+    trainer's ``sps`` over its first log interval, capture included; the
+    GANs' ``StepTimer`` over the last 50 rounds)."""
+    import importlib
+    import math
+    import tempfile
+
+    import torch
+    from PIL import Image
+
+    from dgm_img_super_resolution_tpu_torch.data.mnist import synthetic_mnist
+
+    t_phase = time.perf_counter()
+    counters = _counters()
+    res, failures = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "mnist").mkdir()
+        _write_idx(tmp / "mnist", *synthetic_mnist(8192, seed=0))  # get_mnist's default set (n_synth, --seed 0)
+        for i, (name, argv, png, side) in enumerate(EXAMPLES):
+            label = " ".join([name] + argv)
+            out_dir = tmp / f"run{i}"
+            argv = argv + ["--steps", str(EXAMPLE_STEPS), "--out_dir", str(out_dir)]
+            if i:
+                argv += ["--data_dir", str(tmp / "mnist")]
+            main = importlib.import_module(f"examples_torch.{name}").main
+            torch.cuda.synchronize()
+            _reset_counts(counters)
+            t0 = time.perf_counter()
+            out = main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in _read_counts(counters).items() if v}
+            grid = out_dir / png
+            size = Image.open(grid).size if grid.is_file() else None
+            scalars = {k: v for k, v in out["scalars"].items() if k not in ("step", "sps")}
+            finite = bool(scalars) and all(math.isfinite(v) for v in scalars.values())
+            rate = out["it_per_s"] if name == "train_gan" else out["scalars"].get("sps", 0.0)
+            ok = size == (side, side) and finite and not launches
+            print(f"{card}: example {label} --steps {EXAMPLE_STEPS} (batch 128): wall {wall:.2f} s, {rate:.1f} "
+                  f"steps/s, losses {scalars}; {png} {size}, launches {launches or 'none'} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            res[label] = {"wall_s": wall, "steps_per_s": rate, "scalars": scalars, "png_size": size,
+                          "launches": launches}
+            if not ok:
+                failures.append(f"example {label}: grid {size}, losses {scalars}, launches {launches}")
+            del out
+            torch.cuda.empty_cache()
+    for row in rows:
+        if "shape" not in row:
+            row.setdefault("launches_paths", {})["examples"] = sum(r["launches"].get(row["name"], 0)
+                                                                   for r in res.values())
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"examples phase {res['phase_s']:.1f} s", flush=True)
+    return res, failures
+
+
 NATIVE_SHAPES = (((512, 512, 3), 0.25), ((37, 53, 3), 1.7), ((128, 96, 3), 4.0), ((300, 200), 0.37))
 NATIVE_MEASURE_ROUNDS = 5
 
@@ -4081,12 +4198,22 @@ def phase_native(card, dev="cuda"):
     return res, failures
 
 
-def phase_sampler_api(dev="cuda"):
+# C10: ddim_sample(shape=...) at the full width in float32, two draws for a
+# batch-1 condition, 32 -> 128, 4 DDIM steps at eta 1: a UNet call runs rows
+# 1-3 once each (block_chain.cu and tail_fuse.cu in float32)
+DDIM_SHAPE_STEPS = 4
+DDIM_SHAPE_LAUNCHES = {"block_chain3_stem": DDIM_SHAPE_STEPS, "block_chain3": DDIM_SHAPE_STEPS,
+                       "block_chain3_c64": DDIM_SHAPE_STEPS, "tail_fuse": DDIM_SHAPE_STEPS}
+
+
+def phase_sampler_api(rows, dev="cuda"):
     """The repaired SRDiff sampler API and SD class embedding on the card
     against the CPU, float32 with TF32 off: ``sample(save_intermediate=True)``
     and ``p_sample`` on a small model (hidden 16, mults 1|2, T = 8, HR 64,
-    B = 2; no kernel route at hidden 16), then the published-width SD UNet
-    with ``num_class_embeds=None`` and class labels at latent 32x32."""
+    B = 2; no kernel route at hidden 16); ``ddim_sample(shape=...)`` at the
+    full width with the launches of rows 1-3 (C10); then the published-width
+    SD UNet with ``num_class_embeds=None`` and class labels at latent
+    32x32."""
     import torch
 
     from dgm_img_super_resolution_tpu_torch.ckpt.sd_inventory import X4_UNET_CONFIG
@@ -4139,6 +4266,33 @@ def phase_sampler_api(dev="cuda"):
         res["p_sample"] = {"max_abs_err": err, "rel_err": rel, "tol": tol}
         if not ok:
             failures.append("p_sample card vs CPU")
+    del cpu, gpu
+
+    hp = Hparams(compute_dtype="float32")
+    cpu = init_srdiff_params(build_srdiff(hp), seed=12).eval()
+    gpu = build_srdiff(hp).eval().to(dev)
+    gpu.load_state_dict(cpu.state_dict())
+    lr, up = torch.rand(1, 3, 32, 32, generator=g) * 2 - 1, torch.rand(1, 3, 128, 128, generator=g) * 2 - 1
+    shape = (2, 3, 128, 128)
+    ts, _ = cpu.ddim_timesteps(DDIM_SHAPE_STEPS)
+    noise = (torch.randn(shape, generator=g), {t: torch.randn(shape, generator=g) for t in ts})
+    counters = _counters()
+    with torch.inference_mode():
+        want, _ = cpu.ddim_sample(lr, up, num_steps=DDIM_SHAPE_STEPS, eta=1.0, noise=noise, shape=shape)
+        _reset_counts(counters)
+        got, _ = gpu.ddim_sample(lr.to(dev), up.to(dev), num_steps=DDIM_SHAPE_STEPS, eta=1.0, noise=noise,
+                                 shape=shape)
+        launches = {k: v for k, v in _read_counts(counters).items() if v}
+    err = rel_err(got.cpu(), want)[0]
+    two = float((got[0] - got[1]).abs().max())
+    ok = err <= E2E_TOL and tuple(got.shape) == shape and two > 0 and launches == DDIM_SHAPE_LAUNCHES
+    print(f"card vs CPU, f32 ddim_sample(shape={shape}) for a batch-1 condition, full width, ddim"
+          f"{DDIM_SHAPE_STEPS} eta 1 32->128: max_abs_err {err:.3e} (tol {E2E_TOL}), the two draws differ by "
+          f"{two:.3e}; launches {launches} (expected {DDIM_SHAPE_LAUNCHES}) {'ok' if ok else 'FAIL'}", flush=True)
+    res["ddim_sample_shape"] = {"max_abs_err": err, "launches": launches}
+    _note_launches(rows, "ddim_sample_shape", launches)
+    if not ok:
+        failures.append("ddim_sample(shape=) card vs CPU")
     del cpu, gpu
 
     cfg = dict(X4_UNET_CONFIG, num_class_embeds=None)
@@ -4743,12 +4897,13 @@ def main() -> int:
     train, f11 = phase_train(rows, card)
     dp, f15 = phase_dp(rows, card)
     sp, f16 = phase_sp(rows, card)
-    sampler_api, f12 = phase_sampler_api()
+    sampler_api, f12 = phase_sampler_api(rows)
     edu, f13 = phase_edu(rows, card)
+    examples, f18 = phase_examples(rows, card)
     native, f14 = phase_native(card)
     graphs_res, f17 = phase_graphs(card)
     failures += (f3 + f3c + f3b + f4 + f4b + f5 + f6 + f7 + f7b + f9 + f10 + f8 + f11 + f15 + f16 + f12 + f13 + f14
-                 + f17)
+                 + f17 + f18)
     missing = [row["name"] for row in rows if row["launches"] is None]
     if missing:
         failures.append(f"no launch count for {missing}")
@@ -4758,7 +4913,8 @@ def main() -> int:
             {"card": card, "kernels": rows, "pipeline": pipe, "serving_paths": paths, "bf16_forward": fwd16,
              "card_vs_cpu": e2e, "backward": bwd, "sd": sd, "sd_options": sd_opts, "checkpoint_cli": ckpt_cli,
              "sd_local_checkpoint": sd_local, "sd_card_vs_cpu": sd_e2e, "train": train, "dp": dp, "sp": sp,
-             "sampler_api": sampler_api, "edu": edu, "native": native, "graphs": graphs_res, "failures": failures},
+             "sampler_api": sampler_api, "edu": edu, "examples": examples, "native": native, "graphs": graphs_res,
+             "failures": failures},
             indent=1))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -133,11 +133,16 @@ class GaussianDiffusion(nn.Module):
         projection with the up-projection folded in, and the initial state
         of ``shape`` (``img_lr_up``'s by default): the noise itself, or in
         the non-residual regime the noised ``img_lr_up`` at t = T - 1 (JAX
-        ``:318-338``). Returns ``(x, cond, rrdb_out, hook)``."""
+        ``:318-338``). A batch-1 condition under a larger ``shape`` is
+        shared by every row, as JAX broadcasts it: its projection is
+        repeated to the state's batch, which the kernel regions take. Returns
+        ``(x, cond, rrdb_out, hook)``."""
         shape = tuple(shape) if shape is not None else tuple(img_lr_up.shape)
         hook = as_noise_hook(noise, shape, img_lr_up.device, generator)
         rrdb_out, cond = self.rrdb_cond(img_lr, img_lr_up)
         cond = self.denoise_fn.project(cond, img_lr_up)
+        if cond.shape[0] == 1 < shape[0]:
+            cond = torch.cat([cond] * shape[0])
         x = hook(None).to(img_lr_up.device, torch.float32)
         if not self.res:
             t0 = torch.full((shape[0],), self.num_timesteps - 1, dtype=torch.long, device=img_lr_up.device)
@@ -341,12 +346,15 @@ class GaussianDiffusion(nn.Module):
         return x
 
     def ddim_sample(self, img_lr, img_lr_up, num_steps=None, eta: float = 0.0, noise=None,
-                    generator=None, enc_interval: int = 1):
+                    generator=None, enc_interval: int = 1, shape=None):
         """DDIM over a strided timestep subset (eta=0: deterministic; eta=1
         over the full subsequence: the respaced ancestral chain), with
-        encoder propagation when ``enc_interval`` > 1."""
+        encoder propagation when ``enc_interval`` > 1. ``shape``: the
+        state's, as ``sample_prepare`` takes it (``img_lr_up``'s by default;
+        e.g. several draws for a batch-1 condition); the serve passes none,
+        so its graph keys do not carry it."""
         ts, ts_prev = self.ddim_timesteps(num_steps)
-        x, cond, rrdb_out, hook = self.sample_prepare(img_lr, img_lr_up, noise, generator)
+        x, cond, rrdb_out, hook = self.sample_prepare(img_lr, img_lr_up, noise, generator, shape)
         K = int(enc_interval or 1)
         n_div = (len(ts) // K) * K if K > 1 else 0
         if n_div:

@@ -4,7 +4,8 @@ legacy mid-block attention keys (``group_norm``, ``query``, ``key``,
 ``value``, ``proj_attn``) and in NCHW. GroupNorm eps is 1e-6 throughout.
 
 Serving runs ``decode`` only; the encoder is here so that the published
-state dict loads whole. The mid-block attention is plain single-head
+state dict loads whole, and ``encode`` / ``forward`` take the posterior's
+mean or a sample of it, as JAX's ``encode(x, rng)`` / ``__call__``. The mid-block attention is plain single-head
 attention, as in the JAX package; at a 256x256 latent it spans 65,536
 tokens, so it runs in query chunks that bound the score matrix's memory
 without changing the maths.
@@ -166,11 +167,25 @@ class AutoencoderKL(nn.Module):
         self.quant_conv = nn.Conv2d(2 * lat, 2 * lat, 1)
         self.post_quant_conv = nn.Conv2d(lat, lat, 1)
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """Image in [-1, 1] -> scaled latents (the posterior mean)."""
-        mean, _ = self.quant_conv(self.encoder(x)).chunk(2, dim=1)
+    def encode(self, x: torch.Tensor, generator: torch.Generator | None = None,
+               noise: torch.Tensor | None = None) -> torch.Tensor:
+        """Image in [-1, 1] -> scaled latents: the posterior mean, or with
+        ``noise`` (N(0, I) in the mean's NCHW shape) or a ``generator`` to
+        draw it from, the sample ``mean + exp(0.5 * clamp(logvar, -30,
+        20)) * noise``, taken in float32 (JAX's ``encode(x, rng)``)."""
+        mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=1)
+        if noise is None and generator is not None:
+            noise = torch.randn(mean.shape, generator=generator, device=mean.device)
+        if noise is not None:
+            std = torch.exp(0.5 * logvar.float().clamp(-30.0, 20.0))
+            mean = (mean.float() + std * noise.to(mean.device, torch.float32)).to(mean.dtype)
         return mean * self.scaling_factor
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Scaled latents -> image in [-1, 1] (not clipped)."""
         return self.decoder(self.post_quant_conv(z / self.scaling_factor))
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                noise: torch.Tensor | None = None) -> torch.Tensor:
+        """``decode(encode(x, generator, noise))``, JAX's ``__call__``."""
+        return self.decode(self.encode(x, generator, noise))

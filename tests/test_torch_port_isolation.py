@@ -1,8 +1,9 @@
 """The port stands alone and never falls back quietly.
 
-- No module of ``dgm_img_super_resolution_tpu_torch`` (nor ``chip_smoke.py``)
-  imports ``jax``, ``flax`` or anything of ``dgm_img_super_resolution_tpu``;
-  the package imports in a process where those imports fail.
+- No module of ``dgm_img_super_resolution_tpu_torch`` (nor ``chip_smoke.py``
+  and ``examples_torch/``) imports ``jax``, ``flax`` or anything of
+  ``dgm_img_super_resolution_tpu``; the package imports, and the example
+  scripts run, in a process where those imports fail.
 - The kernel regions run their plain versions on CPU tensors without touching
   the ``launches`` counters, which count CUDA launches only.
 - The pipeline defaults to CUDA and raises when there is none.
@@ -47,7 +48,7 @@ def test_models_and_losses_import_nothing_of_the_mesh(sub):
 
 
 def test_no_jax_imports_anywhere_in_the_port():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + sorted((ROOT / "examples_torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     for f in files:
         for name in _imports(f):
@@ -165,6 +166,34 @@ def test_cli_runs_with_jax_blocked(tmp_path):
     assert out.returncode == 0, out.stderr
     last = out.stdout.strip().splitlines()[-1]
     assert last == "RCS [0, 0, 0, 0] ['a.png', 'op_point_check.json'] (64, 64, 3)"
+
+
+def test_examples_run_with_jax_blocked(tmp_path):
+    """Each example script, run as a file from another directory, in a
+    process where JAX cannot be imported: it finds the port and its
+    ``common`` from its own place in the checkout and writes its grid."""
+    from torch_port_helpers import write_mnist_idx
+
+    cpu_args = ["--data_dir", write_mnist_idx(tmp_path, 32, seed=1), "--device", "cpu", "--batch_size", "4"]
+    runs = {"train_vae": (["--steps", "2"], "vae_samples.png"),
+            "train_gan": (["--kind", "gan", "--steps", "100"], "gan_samples_100.png"),
+            "train_ddpm": (["--steps", "1", "--dim", "8", "--timesteps", "2"], "ddpm_samples.png")}
+    procs = {}
+    for name, (argv, _) in runs.items():
+        script = str(ROOT / "examples_torch" / f"{name}.py")
+        code = (
+            "import runpy, sys\n"
+            "for m in ('jax', 'flax', 'dgm_img_super_resolution_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            f"sys.argv = {[script] + argv + cpu_args + ['--out_dir', str(tmp_path / name)]!r}\n"
+            f"runpy.run_path({script!r}, run_name='__main__')\n"
+        )
+        procs[name] = subprocess.Popen([sys.executable, "-c", code], cwd=tmp_path, env=ONE_THREAD,
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, err
+        assert (tmp_path / name / runs[name][1]).is_file(), out
 
 
 def test_cpu_regions_leave_the_launch_counters_alone():

@@ -5,7 +5,8 @@ The library builds here with ``g++`` at first use. Its MATLAB bicubic
 equals the numpy matrix path (float64 within 1e-12, as the JAX package's
 ``tests/test_native.py``; uint8 exactly: the same double sums, rounded by
 ``nearbyint``, half to even as ``np.around``) and the JAX package's native
-library (bit for bit: the same source and flags). ``use_native``: None
+library (bit for bit: the same source and flags; that library built for the
+test by the JAX package's own ``_build`` into a private path). ``use_native``: None
 takes the library where it built, False the matrix path, True raises where
 the library is missing; ``Measure`` passes its ``use_native`` on.
 """
@@ -41,7 +42,19 @@ def test_native_resize_matches_the_matrix_path(built, scale):
     np.testing.assert_array_equal(got, want)
 
 
-def test_native_matches_the_jax_packages_library(built):
+@pytest.fixture
+def jax_library(tmp_path_factory, monkeypatch):
+    """The JAX package's native library, built by its own ``_build`` from
+    its own source into a path of this test's: its default build writes
+    ``_imageops.so`` in place, and a worker that loads that file while
+    another's g++ writes it keeps ``available() == False`` for its life."""
+    monkeypatch.setattr(jnative, "_SO", str(tmp_path_factory.mktemp("jax_native") / "_imageops.so"))
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_tried", False)
+    return jnative
+
+
+def test_native_matches_the_jax_packages_library(built, jax_library):
     if not jnative.available():
         pytest.fail("the JAX package's native library did not build (g++ is on this host)")
     rng = np.random.default_rng(3)

@@ -6,7 +6,8 @@ held against JAX on the CPU.
    per-step images and x0 predictions; the public one-step ``p_sample``
    (with and without ``noise_pred``, ``clip_denoised``, a raw or projected
    condition); ``sample_prepare``'s ``shape=`` and the non-residual start
-   from the noised LR upsample; the ``clip_input=`` override of ``res2img``
+   from the noised LR upsample; ``ddim_sample``'s ``shape=`` (two draws for
+   a batch-1 condition); the ``clip_input=`` override of ``res2img``
    / ``img2res``. A tiny SRDiff stack (hidden 8, mults 1|2, T = 4, HR 16),
    the JAX params carried across, JAX's key stream fed to the port's hook.
    Bound 1e-4 absolute, as ``tests/test_torch_port_pipeline.py`` (float32
@@ -137,6 +138,31 @@ def test_sample_prepare_shape_and_nonres_start():
         tx2, _, _, _ = m.sample_prepare(nchw(lr), nchw(up), generator=torch.Generator().manual_seed(0),
                                         shape=(2, 3, 16, 16))
     assert tuple(tx2.shape) == (2, 3, 16, 16)
+
+
+@pytest.mark.parametrize("res", [True, False])
+def test_ddim_sample_shape_matches_jax(res):
+    """``ddim_sample(shape=...)`` draws a state of that shape: two samples
+    (eta 1, 3 steps) for a batch-1 condition, residual and non-residual.
+    The condition's projection comes to the state's batch (the kernel
+    regions on the card take matching batches; JAX broadcasts it)."""
+    d, params, m = stack(dict(CFG, res=res), seed=6)
+    lr, up = (a[:1] for a in inputs(7))
+    key = jax.random.PRNGKey(3)
+    want, _ = d.ddim_sample(params, jnp.asarray(lr), jnp.asarray(up), key, num_steps=3, eta=1.0,
+                            shape=(2, 16, 16, 3))
+    ts, _ = m.ddim_timesteps(3)
+    x_t, steps = jax_noise(key, (2, 16, 16, 3), ts)
+    with torch.no_grad():
+        got, _ = m.ddim_sample(nchw(lr), nchw(up), num_steps=3, eta=1.0, noise=(x_t, steps), shape=(2, 3, 16, 16))
+        one, _ = m.ddim_sample(nchw(lr), nchw(up), num_steps=3, eta=1.0,
+                               noise=(x_t[:1], {t: v[:1] for t, v in steps.items()}))
+    assert tuple(got.shape) == (2, 3, 16, 16) and tuple(one.shape) == (1, 3, 16, 16)
+    with torch.no_grad():
+        _, cond, _, _ = m.sample_prepare(nchw(lr), nchw(up), noise=(x_t, steps), shape=(2, 3, 16, 16))
+    assert cond.shape[0] == 2 and torch.equal(cond[0], cond[1])
+    np.testing.assert_allclose(nhwc(got), np.asarray(want), rtol=0, atol=TOL)
+    np.testing.assert_allclose(nhwc(one), np.asarray(want)[:1], rtol=0, atol=TOL)
 
 
 @pytest.mark.parametrize("clip_input", [None, True, False])

@@ -179,6 +179,45 @@ def test_vae_encode_matches_jax(vae_pair):
     _close(_nhwc(got), want)
 
 
+def _vae_draw(seed: int):
+    """An image and JAX's key, and the posterior draw ``encode(x, rng)``
+    takes from that key, NCHW."""
+    img = np.random.default_rng(seed).uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(seed)
+    return img, key, _nchw(np.asarray(jax.random.normal(key, (2, 8, 8, 4), jnp.float32)))
+
+
+def test_vae_sampled_encode_matches_jax(vae_pair):
+    """The sampled posterior, mean + exp(0.5 clip(logvar, -30, 20)) eps,
+    scaled, with JAX's eps passed in; it differs from the mean."""
+    port, ref, tree = vae_pair
+    img, key, eps = _vae_draw(10)
+    want = ref.apply({"params": tree}, jnp.asarray(img), key, method=ref.encode)
+    with torch.no_grad():
+        got = port.encode(_nchw(img), noise=eps)
+        mean = port.encode(_nchw(img))
+        drawn = port.encode(_nchw(img), generator=torch.Generator().manual_seed(0))
+    assert got.shape == drawn.shape == (2, 4, 8, 8)
+    _close(_nhwc(got), want)
+    assert float((got - mean).abs().max()) > 10 * TOL * float(np.abs(np.asarray(want)).max())
+    assert float((drawn - got).abs().max()) > 0
+
+
+def test_vae_forward_matches_jax_call(vae_pair):
+    """``forward`` = decode(encode(x, noise)), JAX's ``__call__(x, rng)``;
+    with no draw, the mean's decode."""
+    port, ref, tree = vae_pair
+    img, key, eps = _vae_draw(11)
+    want = ref.apply({"params": tree}, jnp.asarray(img), key)
+    want_mean = ref.apply({"params": tree}, jnp.asarray(img))
+    with torch.no_grad():
+        got = port(_nchw(img), noise=eps)
+        got_mean = port(_nchw(img))
+    assert got.shape == (2, 3, 16, 16)
+    _close(_nhwc(got), want)
+    _close(_nhwc(got_mean), want_mean)
+
+
 def test_clip_encoder_and_tokenizer_match_jax():
     sd = random_published_state_dict(inv.text_encoder_state_dict_shapes(CLIP_TINY), seed=9)
     port = CLIPTextEncoder(CLIP_TINY)

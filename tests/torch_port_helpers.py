@@ -7,6 +7,21 @@ import torch
 from dgm_img_super_resolution_tpu.models.factory import build_srdiff, init_srdiff_params
 
 
+def write_mnist_idx(d, n: int, seed: int) -> str:
+    """MNIST's IDX files of ``n`` synthetic digits under the directory ``d``
+    (what ``--data_dir`` of the example scripts reads); returns ``d``."""
+    import struct
+    from pathlib import Path
+
+    from dgm_img_super_resolution_tpu_torch.data.mnist import synthetic_mnist
+
+    images, labels = synthetic_mnist(n, seed=seed)
+    d = Path(d)
+    (d / "train-images-idx3-ubyte").write_bytes(struct.pack(">4I", 0x0803, *images.shape) + images.tobytes())
+    (d / "train-labels-idx1-ubyte").write_bytes(struct.pack(">2I", 0x0801, n) + labels.astype(np.uint8).tobytes())
+    return str(d)
+
+
 def hwio(w: np.ndarray) -> np.ndarray:
     """A PyTorch (O, I, kh, kw) conv weight in JAX's HWIO layout."""
     return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
