@@ -158,6 +158,14 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    with the VAE and the AE, ``train_gan`` for the three kinds,
    ``train_ddpm``; each grid at JAX's name and size, finite losses, 0
    launches of every kernel, wall s and steps/s.
+   Then the benchmark scripts (``phase_bench``) at the JAX scripts' full
+   widths and default knobs: ``dgmsr-torch bench`` in process
+   (``bench_torch.py``: 28 ddim20 serves and 4 of the T = 100 chain, 960
+   launches of rows 1-3), ``tools/torch_port_sd_bench.py`` at LR 128 (no
+   flash launch) and at LR 256 with ``SD_FLASH=0`` (the UNet without the
+   kernel: none either), ``tools/torch_port_train_bench.py`` (21 steps, 21
+   launches of rows 1-3); each JSON line with its JAX script's keys and the
+   card line, its numbers printed.
 15. The native imresize (``phase_native``): the port's C++ library builds
    on the card's host, ``imresize`` takes it by default and equals the
    matrix path (uint8 exactly, float64 to 1e-12), and ``Measure.measure``
@@ -2138,12 +2146,13 @@ def sd_flash_per_call(unet, lr: int) -> tuple[int, int]:
     mid block and up path), from the block layout: a Transformer2D whose
     first attention attends to itself (not ``only_cross``) at a level of at
     least ``FLASH_MIN_TOKENS`` tokens (the latent is the LR size, halved
-    per level) launches the kernel once."""
+    per level) launches the kernel once, where the UNet was built with
+    ``use_flash``."""
     from dgm_img_super_resolution_tpu_torch.models.sd.attention import FLASH_MIN_TOKENS
 
     def count(blocks, level):
         return sum(1 for t in blocks if not t.transformer_blocks[0].only_cross
-                   and (lr >> level) ** 2 >= FLASH_MIN_TOKENS)
+                   and t.transformer_blocks[0].attn1.use_flash and (lr >> level) ** 2 >= FLASH_MIN_TOKENS)
 
     n = len(unet.down_blocks)
     down = sum(count(b.attentions or [], i) for i, b in enumerate(unet.down_blocks))
@@ -4132,6 +4141,161 @@ def phase_examples(rows, card):
     return res, failures
 
 
+# The benchmark scripts (phase_bench): each JAX script's JSON line and the
+# port's counterpart, which prints its keys plus ``device``; every knob of
+# theirs, unset for the phase so that they run at their defaults.
+BENCH_SCRIPTS = {"bench": ("bench.py", "bench_torch.py"),
+                 "sd": ("tools/sd_bench.py", "tools/torch_port_sd_bench.py"),
+                 "train": ("tools/train_bench.py", "tools/torch_port_train_bench.py")}
+BENCH_KNOBS = ("BENCH_SAMPLER", "BENCH_STEPS", "BENCH_ETA", "BENCH_ENC", "BENCH_BATCH", "BENCH_ITERS",
+               "BENCH_LAT_ITERS", "BENCH_FULL_CHAIN", "BENCH_FULL_ITERS", "BENCH_PATCH", "SD_BATCH", "SD_ENC",
+               "SD_FLASH", "SD_STEPS", "SD_ITERS", "SD_OUT", "SD_LR", "TRAIN_BENCH_MESH", "TRAIN_BENCH_OUT")
+# bench_torch.py's serves at its defaults: at the operating point, batch 8
+# (a warm-up, 16 for throughput, 5 for latency) and batch 1 (a warm-up, 5);
+# the T = 100 ancestral chain at batch 8 (a warm-up, 3). The training tool:
+# a first step and 20.
+BENCH_OP_SERVES, BENCH_CHAIN_SERVES, TRAIN_BENCH_STEPS = 1 + 16 + 5 + 1 + 5, 1 + 3, 21
+# The runs of phase_bench: (label, script, knobs). The SD tool at its
+# defaults (LR 128), and at LR 256 with the UNet built without flash (C12),
+# where the default UNet launches the kernel 6 times a step.
+BENCH_RUNS = (("bench", "bench", {}), ("sd", "sd", {}),
+              ("sd_noflash_lr256", "sd", {"SD_FLASH": "0", "SD_LR": "256", "SD_ITERS": "1"}),
+              ("train", "train", {}))
+
+
+def json_keys_of(path) -> list[str]:
+    """The keys of a benchmark script's JSON line: the one dict literal of
+    the file with a ``"metric"`` key, read with ``ast`` (nothing imported)."""
+    import ast
+
+    found = [[k.value for k in node.keys if isinstance(k, ast.Constant)]
+             for node in ast.walk(ast.parse(Path(path).read_text())) if isinstance(node, ast.Dict)]
+    found = [keys for keys in found if "metric" in keys]
+    if len(found) != 1:
+        raise ValueError(f"{path}: {len(found)} dict literals with a 'metric' key")
+    return found[0]
+
+
+def bench_launches(line: dict) -> dict:
+    """The launches of ``bench_torch.py``'s run at its default knobs, from
+    its JSON line: each serve's UNet calls (the operating point's steps, with
+    encoder propagation as ``encprop_launches``; the chain's 100) times one
+    UNet call's share of ``SERVE_LAUNCHES["default"]``."""
+    steps = line["steps"] if line["sampler"] == "ddim" else 100
+    want = _times(encprop_launches("default", line["enc_interval"], steps), BENCH_OP_SERVES)
+    if line["full_chain_value"]:
+        want = {k: v + n for (k, v), n in zip(want.items(), _times(encprop_launches("default", 1, 100),
+                                                                     BENCH_CHAIN_SERVES).values())}
+    return want
+
+
+def sd_bench_launches(env: dict) -> dict:
+    """The SD tool's flash launches under the knobs of ``env``: its calls
+    (a first one and ``SD_ITERS``) of 20 steps, one UNet call a step (the
+    guidance batch is one call), each launching as ``sd_flash_per_call``
+    of the UNet built with ``SD_FLASH``."""
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.ckpt.sd_inventory import X4_UNET_CONFIG
+    from dgm_img_super_resolution_tpu_torch.models.sd.unet import UNet2DCondition
+
+    with torch.device("meta"):
+        unet = UNet2DCondition(X4_UNET_CONFIG, use_flash=env.get("SD_FLASH", "1") not in ("0", "false", ""))
+    n = sum(sd_flash_per_call(unet, int(env.get("SD_LR", "128")))) * 20 * (1 + int(env.get("SD_ITERS", "3")))
+    return {"flash_attention": n} if n else {}
+
+
+def _run_script(label, fn, counters, failures) -> dict:
+    """``fn()`` with the launch counters set to 0 just before it; its
+    printed lines echoed; (its JSON line, wall s, non-zero launches)."""
+    import io
+
+    import torch
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    _reset_counts(counters)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _read_counts(counters).items() if v}
+    lines = buf.getvalue().strip().splitlines()
+    for ln in lines:
+        print(f"  {ln}", flush=True)
+    try:
+        line = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        failures.append(f"{label}: no JSON line")
+        line = {}
+    return {"line": line, "wall_s": wall, "launches": launches}
+
+
+def phase_bench(rows, card):
+    """The port's three benchmark scripts on the card (``BENCH_RUNS``) at
+    the JAX scripts' full widths: ``dgmsr-torch bench`` in process (which
+    runs ``bench_torch.py``), ``tools/torch_port_sd_bench.py`` and
+    ``tools/torch_port_train_bench.py`` through their ``main``. Each JSON
+    line must hold its JAX script's keys (``json_keys_of``) and ``device``,
+    the card line; the launches of each run, counted from 0 just before it,
+    must equal its serves' (``bench_launches``), the SD tool's flash
+    launches (``sd_bench_launches``: none at LR 128, none without flash)
+    and the training tool's steps' (``train_step_launches``)."""
+    import math
+    import runpy
+
+    import torch
+
+    from dgm_img_super_resolution_tpu_torch.apps.cli import main as cli_main
+
+    t_phase = time.perf_counter()
+    counters = _counters()
+    res, failures = {}, []
+    mains = {"bench": lambda: cli_main(["bench"]),
+             "sd": lambda: runpy.run_path(BENCH_SCRIPTS["sd"][1])["main"]([]),
+             "train": lambda: runpy.run_path(BENCH_SCRIPTS["train"][1])["main"]([])}
+    saved = {k: os.environ.pop(k) for k in BENCH_KNOBS if k in os.environ}
+    try:
+        with switches():
+            for label, script, env in BENCH_RUNS:
+                jax_path, port_path = BENCH_SCRIPTS[script]
+                os.environ.update(env)
+                try:
+                    r = _run_script(port_path, mains[script], counters, failures)
+                finally:
+                    for k in env:
+                        os.environ.pop(k)
+                line = r["line"]
+                if not line:
+                    continue
+                if script == "bench":
+                    want = bench_launches(line)
+                elif script == "sd":
+                    want = sd_bench_launches(env)
+                else:
+                    want = _times(train_step_launches("default"), TRAIN_BENCH_STEPS)
+                keys = json_keys_of(jax_path) + ["device"]
+                nums = [v for v in line.values() if isinstance(v, (int, float)) and not isinstance(v, bool)]
+                ok_line = list(line) == keys and line["device"] == card and all(math.isfinite(v) for v in nums)
+                ok = ok_line and r["launches"] == want
+                print(f"{card}: {port_path} {' '.join(f'{k}={v}' for k, v in env.items()) or 'at its defaults'}: "
+                      f"wall {r['wall_s']:.1f} s; "
+                      + ", ".join(f"{k} {line[k]}" for k in keys if k in line and k not in ("device", "baseline"))
+                      + f"; launches {r['launches'] or 'none'} {'ok' if ok else f'FAIL, expected {want or None}'}"
+                      + ("" if ok_line else f"; keys {list(line)} != {keys} or device != the card line"), flush=True)
+                if not ok:
+                    failures.append(f"{label}: keys {list(line)}, launches {r['launches']}, expected {want}")
+                res[label] = dict(r, env=env)
+                _note_launches(rows, f"bench_{label}", r["launches"])
+                torch.cuda.empty_cache()
+    finally:
+        os.environ.update(saved)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"bench phase {res['phase_s']:.1f} s", flush=True)
+    return res, failures
+
+
 NATIVE_SHAPES = (((512, 512, 3), 0.25), ((37, 53, 3), 1.7), ((128, 96, 3), 4.0), ((300, 200), 0.37))
 NATIVE_MEASURE_ROUNDS = 5
 
@@ -4900,10 +5064,11 @@ def main() -> int:
     sampler_api, f12 = phase_sampler_api(rows)
     edu, f13 = phase_edu(rows, card)
     examples, f18 = phase_examples(rows, card)
+    bench_res, f19 = phase_bench(rows, card)
     native, f14 = phase_native(card)
     graphs_res, f17 = phase_graphs(card)
     failures += (f3 + f3c + f3b + f4 + f4b + f5 + f6 + f7 + f7b + f9 + f10 + f8 + f11 + f15 + f16 + f12 + f13 + f14
-                 + f17 + f18)
+                 + f17 + f18 + f19)
     missing = [row["name"] for row in rows if row["launches"] is None]
     if missing:
         failures.append(f"no launch count for {missing}")
@@ -4913,8 +5078,8 @@ def main() -> int:
             {"card": card, "kernels": rows, "pipeline": pipe, "serving_paths": paths, "bf16_forward": fwd16,
              "card_vs_cpu": e2e, "backward": bwd, "sd": sd, "sd_options": sd_opts, "checkpoint_cli": ckpt_cli,
              "sd_local_checkpoint": sd_local, "sd_card_vs_cpu": sd_e2e, "train": train, "dp": dp, "sp": sp,
-             "sampler_api": sampler_api, "edu": edu, "examples": examples, "native": native, "graphs": graphs_res,
-             "failures": failures},
+             "sampler_api": sampler_api, "edu": edu, "examples": examples, "bench": bench_res, "native": native,
+             "graphs": graphs_res, "failures": failures},
             indent=1))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -1,5 +1,5 @@
 """Command line of the port: ``dgmsr-torch infer | train | eval | test |
-interp`` (counterpart of the JAX package's ``apps/cli.py``, with its
+interp | bench`` (counterpart of the JAX package's ``apps/cli.py``, with its
 arguments and printed lines).
 
 Every subcommand runs on the CUDA device unless ``--device`` names another
@@ -12,7 +12,9 @@ first and trains data-parallel over its ranks (``parallel/mesh.py``:
 ``hp['mesh_shape']`` names the ``dp`` and ``sp`` axes, every rank on dp by
 default; as JAX's ``fit``, the batch splits over dp and is replicated over
 sp, each dp row cropping its own images), each rank on its own card
-(``--device cpu``: gloo on the CPU), rank 0 printing and writing. The JAX CLI's ``bench`` is not ported yet.
+(``--device cpu``: gloo on the CPU), rank 0 printing and writing. ``bench``
+runs ``bench_torch.py`` from the root of the checkout, as JAX's runs
+``bench.py``, on ``--device``.
 """
 
 from __future__ import annotations
@@ -195,6 +197,18 @@ def cmd_interp(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """The port's benchmark, ``bench_torch.py`` at the root of the checkout
+    that holds this package, on ``--device``: one JSON line."""
+    import runpy
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    runpy.run_module("bench_torch")["main"](["--device", args.device] if args.device else [])
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="dgmsr-torch", description="SRDiff x4 super-resolution on the GPU")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -238,6 +252,10 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("output")
     p.add_argument("--lam", type=float, default=0.5)
     p.set_defaults(fn=cmd_interp)
+
+    p = sub.add_parser("bench", help="run the benchmark (bench_torch.py)")
+    p.add_argument("--device", type=str, default="", help="torch device; the CUDA device by default")
+    p.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -8,6 +8,8 @@ is the rank's own, ``cuda:LOCAL_RANK``.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -28,6 +30,23 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             return local_cuda_device()
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def card_description(device: torch.device) -> str:
+    """What a measurement on ``device`` is reported beside: a card's name and
+    power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them (a card may be held below its
+    maximum power, and then runs slower), else the device type."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device.type
+    index = torch.cuda.current_device() if device.index is None else device.index
+    try:
+        out = subprocess.run(["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True, timeout=60)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return f"{torch.cuda.get_device_name(index)}, power limit not read"
 
 
 def compute_dtype(hp) -> torch.dtype:

@@ -1,11 +1,13 @@
 """Attention blocks of the SD x4-upscaler UNet (counterpart of the JAX
 package's ``models/sd/attention.py``), under the published diffusers names.
 
-Self-attention of at least 1024 tokens goes through the flash-attention
-kernel (``ops/kernels/flash_attention.py``), as the JAX package routes it to
-its Pallas kernel; every other attention (the cross-attentions to the 77
-text tokens, shorter self-attentions) is the plain ``attention`` below,
-whose scores stay in the input dtype. Activations of ``Transformer2D`` are
+With ``use_flash``, self-attention of at least 1024 tokens goes through the
+flash-attention kernel (``ops/kernels/flash_attention.py``), as the JAX
+package routes it to its Pallas kernel; every other attention (the
+cross-attentions to the 77 text tokens, shorter self-attentions, and all of
+them without ``use_flash``) is the plain ``attention`` below, whose scores
+stay in the input dtype. The modules here take JAX's default, off; the
+UNet turns it on (``models/sd/unet.py``). Activations of ``Transformer2D`` are
 NCHW; inside the blocks tokens are (B, L, C).
 """
 
@@ -42,10 +44,11 @@ class Attention(nn.Module):
     """diffusers ``Attention``: bias-free q/k/v projections, ``to_out`` =
     [Linear, Dropout]."""
 
-    def __init__(self, dim: int, heads: int, kv_dim: int | None = None):
+    def __init__(self, dim: int, heads: int, kv_dim: int | None = None, use_flash: bool = False):
         super().__init__()
         kv_dim = dim if kv_dim is None else kv_dim
         self.heads = heads
+        self.use_flash = use_flash
         self.to_q = nn.Linear(dim, dim, bias=False)
         self.to_k = nn.Linear(kv_dim, dim, bias=False)
         self.to_v = nn.Linear(kv_dim, dim, bias=False)
@@ -60,7 +63,8 @@ class Attention(nn.Module):
         k = self.to_k(context).view(b, lk, self.heads, hd)
         v = self.to_v(context).view(b, lk, self.heads, hd)
         # as the JAX package: only self-attention-sized kv takes the kernel
-        out = flash_attention(q, k, v) if lq == lk and lq >= FLASH_MIN_TOKENS else attention(q, k, v)
+        flash = self.use_flash and lq == lk and lq >= FLASH_MIN_TOKENS
+        out = flash_attention(q, k, v) if flash else attention(q, k, v)
         out = out.reshape(b, lq, c)
         return self.to_out[0](out)
 
@@ -90,13 +94,13 @@ class BasicTransformerBlock(nn.Module):
     """Pre-LN (eps 1e-5): attn1, which attends to the text states instead of
     itself when ``only_cross``; attn2, cross-attention; GEGLU feed-forward."""
 
-    def __init__(self, dim: int, heads: int, cross_dim: int, only_cross: bool = False):
+    def __init__(self, dim: int, heads: int, cross_dim: int, only_cross: bool = False, use_flash: bool = False):
         super().__init__()
         self.only_cross = only_cross
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = Attention(dim, heads, cross_dim if only_cross else None)
+        self.attn1 = Attention(dim, heads, cross_dim if only_cross else None, use_flash)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn2 = Attention(dim, heads, cross_dim)
+        self.attn2 = Attention(dim, heads, cross_dim, use_flash)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
@@ -111,11 +115,11 @@ class Transformer2D(nn.Module):
     one transformer block (the published depth) -> Linear ``proj_out``, plus
     the input."""
 
-    def __init__(self, ch: int, heads: int, cross_dim: int, only_cross: bool = False):
+    def __init__(self, ch: int, heads: int, cross_dim: int, only_cross: bool = False, use_flash: bool = False):
         super().__init__()
         self.norm = nn.GroupNorm(gn_groups(ch), ch, eps=1e-6)
         self.proj_in = nn.Linear(ch, ch)
-        self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(ch, heads, cross_dim, only_cross)])
+        self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(ch, heads, cross_dim, only_cross, use_flash)])
         self.proj_out = nn.Linear(ch, ch)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:

@@ -100,7 +100,7 @@ class StableDiffusionUpscalePipeline:
                  text_config: dict = X4_TEXT_CONFIG, dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device | None = None, seed: int = 0,
                  scheduler_config: dict | None = None, low_res_scheduler_config: dict | None = None,
-                 tokenizer: SimpleTokenizer | None = None):
+                 tokenizer: SimpleTokenizer | None = None, use_flash: bool = True):
         """``params``: ``{"unet": ..., "vae": ..., "text_encoder": ...}``
         state dicts (float32) under the published names; ``None`` draws
         random weights from ``seed``. The configs default to the published
@@ -109,11 +109,15 @@ class StableDiffusionUpscalePipeline:
         the hash-bucket ``SimpleTokenizer`` (no vocabulary files); pass one
         built from the published BPE files for the exact tokens. The noise
         comes from a generator on ``device`` seeded by ``seed`` unless a
-        call brings its own."""
+        call brings its own. ``use_flash`` builds the UNet with or without
+        the flash kernel on its long self-attentions (``UNet2DCondition``;
+        JAX's pipeline takes a UNet built so). It is fixed for the
+        pipeline's life, and so is the routing every captured serve of
+        ``self._graphs`` recorded: no graph serves the other routing."""
         self.device = resolve_device(device)
         self.dtype = dtype
         with torch.device(self.device):
-            self.unet = UNet2DCondition(unet_config)
+            self.unet = UNet2DCondition(unet_config, use_flash=use_flash)
             self.vae = AutoencoderKL(vae_config)
             self.text_encoder = CLIPTextEncoder(text_config)
         modules = {"unet": self.unet, "vae": self.vae, "text_encoder": self.text_encoder}

@@ -71,11 +71,11 @@ class Conv(nn.Module):
 
 
 class DownBlock(nn.Module):
-    def __init__(self, cin, cout, tdim, layers, heads, cross_dim, attn, only_cross, add_down):
+    def __init__(self, cin, cout, tdim, layers, heads, cross_dim, attn, only_cross, add_down, use_flash):
         super().__init__()
         self.resnets = nn.ModuleList([ResnetBlock2D(cin if j == 0 else cout, cout, tdim) for j in range(layers)])
         self.attentions = nn.ModuleList(
-            [Transformer2D(cout, heads, cross_dim, only_cross) for _ in range(layers)]
+            [Transformer2D(cout, heads, cross_dim, only_cross, use_flash) for _ in range(layers)]
         ) if attn else None
         self.downsamplers = nn.ModuleList([Conv(cout, stride=2)]) if add_down else None
 
@@ -92,14 +92,14 @@ class DownBlock(nn.Module):
 
 
 class UpBlock(nn.Module):
-    def __init__(self, prev, cin, cout, tdim, layers, heads, cross_dim, attn, only_cross, add_up):
+    def __init__(self, prev, cin, cout, tdim, layers, heads, cross_dim, attn, only_cross, add_up, use_flash):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D((prev if j == 0 else cout) + (cin if j == layers else cout), cout, tdim)
             for j in range(layers + 1)
         ])
         self.attentions = nn.ModuleList(
-            [Transformer2D(cout, heads, cross_dim, only_cross) for _ in range(layers + 1)]
+            [Transformer2D(cout, heads, cross_dim, only_cross, use_flash) for _ in range(layers + 1)]
         ) if attn else None
         self.upsamplers = nn.ModuleList([Conv(cout)]) if add_up else None
 
@@ -114,10 +114,10 @@ class UpBlock(nn.Module):
 
 
 class MidBlock(nn.Module):
-    def __init__(self, ch, tdim, heads, cross_dim):
+    def __init__(self, ch, tdim, heads, cross_dim, use_flash):
         super().__init__()
         self.resnets = nn.ModuleList([ResnetBlock2D(ch, ch, tdim), ResnetBlock2D(ch, ch, tdim)])
-        self.attentions = nn.ModuleList([Transformer2D(ch, heads, cross_dim)])
+        self.attentions = nn.ModuleList([Transformer2D(ch, heads, cross_dim, use_flash=use_flash)])
 
     def forward(self, h, temb, ctx):
         h = self.resnets[0](h, temb)
@@ -137,9 +137,12 @@ class TimestepMLP(nn.Module):
 
 class UNet2DCondition(nn.Module):
     """Built from a diffusers ``UNet2DConditionModel`` config dict
-    (``ckpt/sd_inventory.X4_UNET_CONFIG``), as the JAX ``from_config``."""
+    (``ckpt/sd_inventory.X4_UNET_CONFIG``), as the JAX ``from_config``.
+    ``use_flash`` (JAX's default, on): self-attention of at least
+    ``FLASH_MIN_TOKENS`` tokens runs the flash kernel; off, every attention
+    is the plain one. It is fixed at construction."""
 
-    def __init__(self, cfg: dict):
+    def __init__(self, cfg: dict, use_flash: bool = True):
         super().__init__()
         chs = list(cfg["block_out_channels"])
         lpb = cfg["layers_per_block"]
@@ -159,15 +162,15 @@ class UNet2DCondition(nn.Module):
         cin, blocks = chs[0], []
         for i, ch in enumerate(chs):
             blocks.append(DownBlock(cin, ch, tdim, lpb, heads, cross, down_attn[i], oc[i],
-                                    i < len(chs) - 1))
+                                    i < len(chs) - 1, use_flash))
             cin = ch
         self.down_blocks = nn.ModuleList(blocks)
-        self.mid_block = MidBlock(chs[-1], tdim, heads, cross)
+        self.mid_block = MidBlock(chs[-1], tdim, heads, cross, use_flash)
         rev, prev, blocks = chs[::-1], chs[-1], []
         for i, out_ch in enumerate(rev):
             level = len(chs) - 1 - i
             blocks.append(UpBlock(prev, rev[min(i + 1, len(chs) - 1)], out_ch, tdim, lpb, heads, cross,
-                                  up_attn[i], oc[level], i < len(chs) - 1))
+                                  up_attn[i], oc[level], i < len(chs) - 1, use_flash))
             prev = out_ch
         self.up_blocks = nn.ModuleList(blocks)
         self.conv_norm_out = nn.GroupNorm(gn_groups(chs[0]), chs[0], eps=NORM_EPS)

@@ -6,10 +6,13 @@
   scripts run, in a process where those imports fail.
 - The kernel regions run their plain versions on CPU tensors without touching
   the ``launches`` counters, which count CUDA launches only.
-- The pipeline defaults to CUDA and raises when there is none.
+- The pipeline defaults to CUDA and raises when there is none; so do the
+  benchmark scripts (``bench_torch.py``, ``tools/torch_port_*_bench.py``),
+  which also run with JAX blocked.
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -194,6 +197,81 @@ def test_examples_run_with_jax_blocked(tmp_path):
         out, err = proc.communicate(timeout=300)
         assert proc.returncode == 0, err
         assert (tmp_path / name / runs[name][1]).is_file(), out
+
+
+BENCH_FILES = ("bench_torch.py", "tools/torch_port_sd_bench.py", "tools/torch_port_train_bench.py")
+
+
+def test_bench_scripts_import_no_jax():
+    files = [ROOT / f for f in BENCH_FILES] + sorted((ROOT / "tools").glob("torch_port_*.py"))
+    for f in files:
+        for name in _imports(f):
+            assert name.split(".")[0] not in FORBIDDEN, f"{f.relative_to(ROOT)} imports {name}"
+
+
+def test_bench_scripts_run_with_jax_blocked(tmp_path):
+    """``dgmsr-torch bench --device cpu`` (``bench_torch.py``, its Hparams
+    narrowed to a hidden-16 two-stage model) and the two tools, run as
+    files from another directory (the SD tool on the tiny SD configs), in
+    processes where JAX cannot be imported: each prints its JSON line."""
+    from torch_port_helpers import CLIP_TINY, UNET_TINY, VAE_TINY
+
+    block = "import runpy, sys\nfor m in ('jax', 'flax', 'dgm_img_super_resolution_tpu'):\n    sys.modules[m] = None\n"
+    bench = (
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import dgm_img_super_resolution_tpu_torch.core.config as c\n"
+        "narrow = dict(hidden_size=16, unet_dim_mults='1|2', rrdb_num_block=2, rrdb_num_feat=8)\n"
+        "c.Hparams = lambda *a, _h=c.Hparams, **kw: _h(*a, **{**kw, **narrow})\n"
+        "from dgm_img_super_resolution_tpu_torch.apps.cli import main\n"
+        "sys.exit(main(['bench', '--device', 'cpu']))\n"
+    )
+    sd_script = str(ROOT / "tools" / "torch_port_sd_bench.py")
+    sd = (
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import dgm_img_super_resolution_tpu_torch.models.sd.pipeline as p\n"
+        f"tiny = dict(unet_config=dict({UNET_TINY!r}, num_class_embeds=1000), vae_config={VAE_TINY!r},\n"
+        f"            text_config={CLIP_TINY!r})\n"
+        "p.StableDiffusionUpscalePipeline = lambda _p=p.StableDiffusionUpscalePipeline, **kw: _p(**kw, **tiny)\n"
+        f"sys.argv = [{sd_script!r}, '--device', 'cpu']\n"
+        f"runpy.run_path({sd_script!r}, run_name='__main__')\n"
+    )
+    train_script = str(ROOT / "tools" / "torch_port_train_bench.py")
+    train = (f"sys.argv = [{train_script!r}, '--tiny', '--device', 'cpu']\n"
+             f"runpy.run_path({train_script!r}, run_name='__main__')\n")
+    env = dict(ONE_THREAD, BENCH_STEPS="2", BENCH_BATCH="1", BENCH_ITERS="1", BENCH_LAT_ITERS="1",
+               BENCH_FULL_CHAIN="0", SD_STEPS="2", SD_ITERS="1", SD_LR="32")
+    procs = {name: subprocess.Popen([sys.executable, "-c", block + code], cwd=tmp_path, env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, code in (("bench", bench), ("sd", sd), ("train", train))}
+    metrics = {}
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, err
+        line = json.loads(out.strip().splitlines()[-1])
+        assert line["device"] == "cpu", line
+        metrics[name] = line["metric"]
+    assert metrics == {"bench": "srdiff_x4_512_upscales_per_sec_per_chip", "sd": "sd_x4_512_upscale_p50_s",
+                       "train": "srdiff_train_steps_per_sec"}
+
+
+def test_bench_scripts_need_cuda_unless_asked_for_cpu(monkeypatch):
+    """Without a card and without ``--device`` each script raises before it
+    builds anything, as the pipelines do."""
+    import importlib.util
+
+    from dgm_img_super_resolution_tpu_torch.apps.cli import main as cli_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "path", [str(ROOT)] + sys.path)
+    mains = [lambda: cli_main(["bench"])]
+    for f in BENCH_FILES:
+        spec = importlib.util.spec_from_file_location(f"isolation_{Path(f).stem}", ROOT / f)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        mains.append(lambda m=module: m.main([]))
+    for run in mains:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run()
 
 
 def test_cpu_regions_leave_the_launch_counters_alone():

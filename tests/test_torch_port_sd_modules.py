@@ -90,7 +90,7 @@ def test_flash_plain_version_matches_jax_kernel(b, l, h, d):
 def test_transformer2d_matches_jax(prefix, hw, only_cross):
     sd, tree = _unet_part(prefix, seed=3)
     heads, cross = UNET_TINY["attention_head_dim"], UNET_TINY["cross_attention_dim"]
-    port = tattn.Transformer2D(64, heads, cross, only_cross)
+    port = tattn.Transformer2D(64, heads, cross, only_cross, use_flash=True)
     port.load_state_dict(sd, strict=True)
     ref = jattn.Transformer2D(heads, 64 // heads, use_flash=True, only_cross_attention=only_cross)
     g = np.random.default_rng(hw)
