@@ -166,6 +166,19 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    kernel: none either), ``tools/torch_port_train_bench.py`` (21 steps, 21
    launches of rows 1-3); each JSON line with its JAX script's keys and the
    card line, its numbers printed.
+   Then the DDIM operating-point study (``phase_operating_point``,
+   ``tools/torch_port_ddim_operating_point.py`` through its ``main``) at a
+   reduced depth: 200 updates of the full-width model at batch 4 of 160^2
+   crops of its two synthetic images, the 256^2 centre regions served with
+   ``ddpm100``, ``ddpm100_seed2``, ``ddim20_eta1`` and
+   ``ddim20_eta1_ep2``, and ``ddim20_eta1`` served again with every region
+   on its plain version. The record must hold the JAX tool's keys and the
+   port's four, every PSNR and SSIM finite; rows 1-3 launched exactly once a
+   training update, 100 times a ``ddpm100`` serve, 20 a ddim20 serve, at
+   ``enc_interval`` 2 row 1 10 times and rows 2-3 20, none on the plain
+   versions and no other kernel; and at ``ddim20_eta1`` the kernels'
+   PSNR-vs-HR within 0.1 dB of the plain versions' (the tolerance the study
+   chooses by).
 15. The native imresize (``phase_native``): the port's C++ library builds
    on the card's host, ``imresize`` takes it by default and equals the
    matrix path (uint8 exactly, float64 to 1e-12), and ``Measure.measure``
@@ -230,8 +243,8 @@ Run from the root of the repository; it needs one CUDA device and nvcc.
    weight replays), SRDiff validation with ``sample_metrics`` at
    ``phase_train``'s hparams (2 batches of 16 and the T = 100 sample: 102
    launches of rows 1-3), a WGAN-GP ``val_step``, the DDPM sampler at T =
-   250 and batch 16 (one graph over the chain, compared under cuDNN's
-   deterministic algorithms; its eager calls and four replays timed) and
+   100 and batch 16 (one graph over the chain, compared under cuDNN's
+   deterministic algorithms; its eager calls and two replays timed) and
    LPIPS at 512^2; and the CLI's ``infer --progress`` wall, eager and
    through the graphs, in turns. Interpolation, the DDPM sampler and LPIPS
    capture at a key's second call: their first call must run eagerly and
@@ -2958,7 +2971,7 @@ def phase_train(rows, card):
 # device), spawned with torch.multiprocessing; then NCCL at world = the
 # card count, and dgmsr-torch train under torchrun.
 DP_GLOO_WORLD = 2
-DP_BATCH, DP_ROUNDS, DP_B1_SERVES = 8, 3, 5
+DP_BATCH, DP_ROUNDS, DP_B1_SERVES = 8, 1, 1  # timed serves cut to one each: the script's time limit
 DP_TRAIN_STEPS = 3
 DP_BF16_TOL = 3e-2  # max |world W - world 1 serving each rank's rows in a call of its own| in bf16, same draws
 # uint8 max of world W against world 1 at batch DP_BATCH in bf16, where cuDNN
@@ -3047,6 +3060,8 @@ def _dp_serve(rank, world, mesh, counters, res, dtypes, timed):
                 barrier()
                 w2.append(_timed_serve(pipe, imgs, counters, generator=gen())[1])
             b1, b2 = [], []
+            if rank == 0:  # world 1's first batch-1 call captures its graph: not timed
+                _timed_serve(one, imgs[:1], counters, generator=gen())
             for _ in range(DP_B1_SERVES):
                 barrier()
                 if rank == 0:
@@ -3401,7 +3416,7 @@ def phase_dp(rows, card):
 # rows over all four (JAX's shard_spatial), its regions under
 # kernels_disabled() (JAX's _with_pallas_disabled): no kernel launches there.
 SP_WORLD, SP_SPEC = 4, "dp=2,sp=2"
-SP_B1_SERVES, SP_STEP_ROUNDS = 3, 3
+SP_B1_SERVES, SP_STEP_ROUNDS = 1, 1  # timed serves and steps cut to one each: the script's time limit
 SP_TRAIN_SEED = 70
 
 
@@ -3484,6 +3499,8 @@ def _sp_serve(rank, mesh, counters, res):
             _, _, r["b4_launches"] = _timed_serve(pipe, imgs, counters, generator=gen())
             r["halo"] = _sp_halo(pipe, mesh, rank)
             b1, bw = [], []
+            if rank == 0:  # world 1's first batch-1 call captures its graph: not timed
+                _timed_serve(one, imgs[:1], counters, generator=gen())
             for _ in range(SP_B1_SERVES):  # world 1 (its kernels) then world 4 (split), in turns
                 barrier()
                 if rank == 0:
@@ -4163,16 +4180,17 @@ BENCH_RUNS = (("bench", "bench", {}), ("sd", "sd", {}),
               ("train", "train", {}))
 
 
-def json_keys_of(path) -> list[str]:
-    """The keys of a benchmark script's JSON line: the one dict literal of
-    the file with a ``"metric"`` key, read with ``ast`` (nothing imported)."""
+def json_keys_of(path, marker: str = "metric") -> list[str]:
+    """The keys of a script's JSON record: the one dict literal of the file
+    with a ``marker`` key (a benchmark script's line: ``"metric"``), read
+    with ``ast`` (nothing imported)."""
     import ast
 
     found = [[k.value for k in node.keys if isinstance(k, ast.Constant)]
              for node in ast.walk(ast.parse(Path(path).read_text())) if isinstance(node, ast.Dict)]
-    found = [keys for keys in found if "metric" in keys]
+    found = [keys for keys in found if marker in keys]
     if len(found) != 1:
-        raise ValueError(f"{path}: {len(found)} dict literals with a 'metric' key")
+        raise ValueError(f"{path}: {len(found)} dict literals with a {marker!r} key")
     return found[0]
 
 
@@ -4293,6 +4311,134 @@ def phase_bench(rows, card):
         os.environ.update(saved)
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"bench phase {res['phase_s']:.1f} s", flush=True)
+    return res, failures
+
+
+# The DDIM operating-point study (tools/torch_port_ddim_operating_point.py) at a reduced depth: 200
+# updates at batch 4 of 160^2 crops of its two synthetic images (its host iterator takes ~40 ms a
+# crop: batch 16 took 158.6 s of the phase's 184.1), the evaluation at 256^2 HR (LR 64),
+# four of its modes, and the kernels against their plain versions at ddim20 eta 1, held there to the
+# 0.1 dB that the study chooses by.
+OP_STUDY = ("tools/ddim_operating_point.py", "tools/torch_port_ddim_operating_point.py")
+OP_TRAIN_STEPS, OP_BATCH, OP_HR_SIZE = 200, 4, 256
+OP_MODES = ("ddpm100", "ddpm100_seed2", "ddim20_eta1", "ddim20_eta1_ep2")
+OP_CHECK = "ddim20_eta1"
+OP_GAP_DB = 0.1
+
+
+def op_mode_launches(mode: tuple) -> dict:
+    """One serve's launches at a study mode ``(sampler, steps, eta, key,
+    seed, enc_interval)``: its UNet calls (the chain's 100) with encoder
+    propagation as ``encprop_launches``."""
+    sampler, steps, _, _, _, k = mode
+    return encprop_launches("default", k, steps if sampler == "ddim" else 100)
+
+
+def _nonfinite_metrics(tree) -> list[str]:
+    """The paths of every PSNR or SSIM in a record that is not finite."""
+    import math
+
+    bad = []
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + [k])
+            elif k.startswith(("psnr", "ssim")) and not (isinstance(v, (int, float)) and math.isfinite(v)):
+                bad.append("/".join(path + [k]))
+
+    walk(tree, [])
+    return bad
+
+
+def phase_operating_point(rows, card):
+    """The port's DDIM operating-point study through its ``main`` at a
+    reduced depth (``OP_*``): training through ``SRDiffTask`` and
+    ``Trainer.fit`` over ``DIV2KDataset``, every serve through
+    ``SRDiffPipeline`` at batch 1, the metrics through ``Measure``. The
+    record must hold the JAX tool's keys (``backend`` as ``device``) and
+    ``images``, ``kernels_vs_plain``, ``launches``, every PSNR and SSIM
+    finite; rows 1-3 must have launched exactly once a training update (so
+    none in backward), 100 times a ``ddpm100`` serve, 20 a ddim20 serve and
+    at ``enc_interval`` 2 row 1 10 times and rows 2-3 20, none under
+    ``kernels_disabled()`` and no other kernel at all (the counters set to 0
+    before the study and read after, against the sum of the record's); and
+    the kernels' PSNR-vs-HR at ``OP_CHECK`` must be within ``OP_GAP_DB`` of
+    the plain versions'."""
+    import importlib.util
+    import io
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    jax_path, port_path = OP_STUDY
+    spec = importlib.util.spec_from_file_location("torch_port_ddim_operating_point", port_path)
+    study = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(study)
+    counters = _counters()
+    failures = []
+    tmp = Path(tempfile.mkdtemp(prefix="op_point_"))
+    argv = ["--train-steps", str(OP_TRAIN_STEPS), "--batch", str(OP_BATCH), "--hr-size", str(OP_HR_SIZE),
+            "--modes", ",".join(OP_MODES), "--kernels-vs-plain", OP_CHECK, "--work-dir", str(tmp / "wd"),
+            "--out", str(tmp / "record.json")]
+    buf = io.StringIO()
+    try:
+        with switches():
+            torch.cuda.synchronize()
+            _reset_counts(counters)
+            with contextlib.redirect_stdout(buf):
+                rec = study.main(argv)
+            torch.cuda.synchronize()
+            total = {k: v for k, v in _read_counts(counters).items() if v}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for ln in buf.getvalue().splitlines():
+        if ln.startswith("| "):
+            print(f"  {ln}", flush=True)
+
+    keys = [("device" if k == "backend" else k) for k in json_keys_of(jax_path, "operating_point")]
+    want_keys = keys + ["images", "kernels_vs_plain", "launches"]
+    if list(rec) != want_keys or rec["device"] != card:
+        failures.append(f"operating point: record keys {list(rec)} != {want_keys} or device {rec['device']!r}")
+    bad = _nonfinite_metrics({"results": rec["results"], "kernels_vs_plain": rec["kernels_vs_plain"]})
+    if bad:
+        failures.append(f"operating point: not finite {bad}")
+
+    kvp = rec["kernels_vs_plain"][OP_CHECK]
+    names = [n for n in kvp if n != "mean_gap_db"]
+    n_img = len(names)
+    modes = {m[3]: m for m in study.mode_list(7, ",".join(OP_MODES))}
+    per_update = train_step_launches("default")
+    want = {"train": {"updates": OP_TRAIN_STEPS, "launches": _times(per_update, OP_TRAIN_STEPS)},
+            "modes": {key: _times(op_mode_launches(m), n_img) for key, m in modes.items()},
+            "kernels_vs_plain": {OP_CHECK: {"kernels": _times(op_mode_launches(modes[OP_CHECK]), n_img),
+                                            "plain": {}}}}
+    got = rec["launches"]
+    summed: dict = {}
+    for part in [got["train"]["launches"], *got["modes"].values(), *[r for v in got["kernels_vs_plain"].values()
+                                                                     for r in v.values()]]:
+        for k, v in part.items():
+            summed[k] = summed.get(k, 0) + v
+    for label, g, w in (("training", got["train"], want["train"]),
+                        *((f"{k} serves", got["modes"].get(k), w) for k, w in want["modes"].items()),
+                        ("kernels vs plain", got["kernels_vs_plain"], want["kernels_vs_plain"]),
+                        ("the counters across the study", total, summed)):
+        _launch_check(f"operating point: {label}", g, w, failures)
+
+    gap = kvp["mean_gap_db"]
+    ok_gap = abs(gap) <= OP_GAP_DB
+    mean = lambda key: sum(rec["results"][key][n]["psnr_vs_hr"] for n in names) / len(names)  # noqa: E731
+    print(f"{card}: operating-point study, {OP_TRAIN_STEPS} updates at batch {OP_BATCH}, {OP_HR_SIZE}^2 regions "
+          f"of {rec['images']}: mean PSNR-vs-HR " + ", ".join(f"{k} {mean(k):.4f}" for k in OP_MODES)
+          + f" dB; seed floor {rec['seed_noise_floor_db']} dB; chosen {rec['operating_point']}; {OP_CHECK} kernels "
+          f"vs plain: PSNR-vs-HR gap {gap:+.4f} dB (bound {OP_GAP_DB}) {'ok' if ok_gap else 'FAIL'}, kernels' image "
+          f"vs plain " + ", ".join(f"{n} {kvp[n]['psnr_kernels_vs_plain']:.2f}" for n in names) + " dB", flush=True)
+    if not ok_gap:
+        failures.append(f"operating point: {OP_CHECK} kernels vs plain PSNR-vs-HR gap {gap} dB > {OP_GAP_DB}")
+    _note_launches(rows, "operating_point", total)
+    res = {"record": rec, "launches": total, "phase_s": time.perf_counter() - t_phase}
+    print(f"operating point phase {res['phase_s']:.1f} s", flush=True)
     return res, failures
 
 
@@ -4490,10 +4636,14 @@ def phase_sampler_api(rows, dev="cuda"):
 # bound). The WGAN-GP round is compared under cuDNN's deterministic algorithms: with its default ones
 # (weight gradients summed by atomics) two eager rounds differ, and Adam moves each zero-gradient conv bias
 # by that noise.
-GRAPH_ROUNDS = {"srdiff_b8": 4, "srdiff_b1": 4, "srdiff_t100_b1": 2, "sd_lr128": 2, "sd_lr256": 2, "train": 3,
-                "wgan_gp": 4, "progress": 2, "sd_callback": 0, "interp": 1, "validation": 1, "lpips": 4}
+# The timed rounds are cut to what keeps a time in turns (the checks are unchanged) so that the whole
+# script stays inside its limit with phase_operating_point's host-bound training.
+GRAPH_ROUNDS = {"srdiff_b8": 2, "srdiff_b1": 2, "srdiff_t100_b1": 1, "sd_lr128": 1, "sd_lr256": 1, "train": 1,
+                "wgan_gp": 2, "progress": 1, "sd_callback": 0, "interp": 1, "validation": 1, "lpips": 2}
 GRAPH_TRAIN_STEPS, GRAPH_TRAIN_ACC = 3, 2
-GRAPH_DDPM_REPLAYS = 3  # the DDPM chain's replays timed beyond the compared one
+GRAPH_DDPM_REPLAYS = 1  # the DDPM chain's replays timed beyond the compared one
+GRAPH_DDPM_T = 100  # the DDPM chain's length here (phase_edu's EDU_SAMPLE_T, cut further for time)
+GRAPH_CLI_TURNS = (True, False)  # the CLI's infer --progress, eager (True) then through the graphs
 GRAPH_NONDET_REL = 3e-2
 
 
@@ -4898,15 +5048,15 @@ def _graph_whole(counters, failures, card) -> dict:
 
         return sample, model
 
-    # at phase_edu's T (cut from 1000: the T = 1000 chain's eager call, capture and replay took 72 s of this
+    # at GRAPH_DDPM_T (cut from 1000: the T = 1000 chain's eager call, capture and replay took 72 s of this
     # phase), compared under cuDNN's deterministic algorithms (with its defaults two eager chains differ by
     # ~2e-6); its traces at T = 10 (the profiler took 81 s over one T = 1000 replay). The educational models
     # launch no port kernel: the traces and the captured counts must show none.
-    sample, model = ddpm_sampler(EDU_SAMPLE_T)
+    sample, model = ddpm_sampler(GRAPH_DDPM_T)
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        res["ddpm_sample"] = _graph_path(f"DDPM sampler T = {EDU_SAMPLE_T} B={EDU_SAMPLE_N} 32^2 f32 "
+        res["ddpm_sample"] = _graph_path(f"DDPM sampler T = {GRAPH_DDPM_T} B={EDU_SAMPLE_N} 32^2 f32 "
                                          "(cudnn.deterministic)", sample, [model._graphs], 0, counters, failures, {},
                                          on_repeat=True, replays=GRAPH_DDPM_REPLAYS, trace=ddpm_sampler(10)[0])
     finally:
@@ -4928,7 +5078,7 @@ def _graph_whole(counters, failures, card) -> dict:
                                    failures, {}, on_repeat=True)
         Image.fromarray(np.random.default_rng(22).integers(0, 256, (128, 128, 3), dtype=np.uint8)).save(tmp / "lr.png")
         walls = {True: [], False: []}
-        for eager in (True, False, False, True):
+        for eager in GRAPH_CLI_TURNS:
             with graphs.eager() if eager else contextlib.nullcontext():
                 rc, _, dt = _cli(["infer", str(tmp / "lr.png"), str(tmp / "sr.png"), "--progress", "-hp", SERVE_HP])
             walls[eager].append(dt)
@@ -4937,7 +5087,7 @@ def _graph_whole(counters, failures, card) -> dict:
     res["cli_infer_progress"] = {"eager_s": walls[True], "graphs_s": walls[False]}
     print(f"{card}: CLI infer --progress 128 -> 512 ddim20 bf16 (a pipeline built a call): eager "
           f"{median(walls[True]):.3f} s, through the graphs (eager first call, then the captures) "
-          f"{median(walls[False]):.3f} s, in turns e g g e", flush=True)
+          f"{median(walls[False]):.3f} s, in turns", flush=True)
     return res
 
 
@@ -5065,10 +5215,11 @@ def main() -> int:
     edu, f13 = phase_edu(rows, card)
     examples, f18 = phase_examples(rows, card)
     bench_res, f19 = phase_bench(rows, card)
+    op_point, f20 = phase_operating_point(rows, card)
     native, f14 = phase_native(card)
     graphs_res, f17 = phase_graphs(card)
     failures += (f3 + f3c + f3b + f4 + f4b + f5 + f6 + f7 + f7b + f9 + f10 + f8 + f11 + f15 + f16 + f12 + f13 + f14
-                 + f17 + f18 + f19)
+                 + f17 + f18 + f19 + f20)
     missing = [row["name"] for row in rows if row["launches"] is None]
     if missing:
         failures.append(f"no launch count for {missing}")
@@ -5078,7 +5229,8 @@ def main() -> int:
             {"card": card, "kernels": rows, "pipeline": pipe, "serving_paths": paths, "bf16_forward": fwd16,
              "card_vs_cpu": e2e, "backward": bwd, "sd": sd, "sd_options": sd_opts, "checkpoint_cli": ckpt_cli,
              "sd_local_checkpoint": sd_local, "sd_card_vs_cpu": sd_e2e, "train": train, "dp": dp, "sp": sp,
-             "sampler_api": sampler_api, "edu": edu, "examples": examples, "bench": bench_res, "native": native,
+             "sampler_api": sampler_api, "edu": edu, "examples": examples, "bench": bench_res,
+             "operating_point": op_point, "native": native,
              "graphs": graphs_res, "failures": failures},
             indent=1))
     if failures:

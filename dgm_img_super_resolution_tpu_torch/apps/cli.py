@@ -183,7 +183,8 @@ def cmd_test(args) -> int:
             json.dump(res, f, indent=2)
         if not res["within_tol"]:
             print("| WARNING: operating point drifted beyond tolerance under these weights: re-run the "
-                  "DDIM operating-point study to re-record", file=sys.stderr)
+                  "DDIM operating-point study (tools/torch_port_ddim_operating_point.py) to re-record",
+                  file=sys.stderr)
     return 0
 
 

@@ -92,6 +92,7 @@ def validate_operating_point(hp, params: Mapping[str, torch.Tensor], pairs: Sequ
     }
     if not result["within_tol"]:
         logger.warning("operating point %s drifts %.3f dB below the ancestral chain under these weights "
-                       "(tol %.2f): re-run the DDIM operating-point study and re-record "
-                       "DDIM_OPERATING_POINT.json", op, delta, tol_db)
+                       "(tol %.2f): re-run the DDIM operating-point study "
+                       "(tools/torch_port_ddim_operating_point.py) and re-record DDIM_OPERATING_POINT.json",
+                       op, delta, tol_db)
     return result

@@ -7,8 +7,10 @@
 - The kernel regions run their plain versions on CPU tensors without touching
   the ``launches`` counters, which count CUDA launches only.
 - The pipeline defaults to CUDA and raises when there is none; so do the
-  benchmark scripts (``bench_torch.py``, ``tools/torch_port_*_bench.py``),
-  which also run with JAX blocked.
+  benchmark scripts (``bench_torch.py``, ``tools/torch_port_*_bench.py``)
+  and the DDIM operating-point study
+  (``tools/torch_port_ddim_operating_point.py``), which also run with JAX
+  blocked.
 """
 
 import ast
@@ -272,6 +274,55 @@ def test_bench_scripts_need_cuda_unless_asked_for_cpu(monkeypatch):
     for run in mains:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run()
+
+
+STUDY = "tools/torch_port_ddim_operating_point.py"
+
+
+def test_operating_point_study_imports_no_jax():
+    for name in _imports(ROOT / STUDY):
+        assert name.split(".")[0] not in FORBIDDEN, f"{STUDY} imports {name}"
+
+
+def test_operating_point_study_runs_with_jax_blocked(tmp_path):
+    """The DDIM operating-point study run as a file from another directory,
+    in a process where JAX cannot be imported, at a tiny size on the CPU: it
+    writes its two synthetic images, trains one update, serves three modes
+    and writes its record."""
+    script = str(ROOT / STUDY)
+    argv = [script, "--device", "cpu", "--train-steps", "1", "--batch", "2", "--hr-size", "32",
+            "--modes", "ddpm100,ddpm100_seed2,ddim8_eta1", "--work-dir", str(tmp_path / "wd"),
+            "--out", str(tmp_path / "rec.json"),
+            "-hp", "hidden_size=8,rrdb_num_block=2,rrdb_num_feat=8,timesteps=8,unet_dim_mults=1|2,"
+                   "compute_dtype=float32,patch_size=32,save_codes=[]"]
+    code = (
+        "import runpy, sys\n"
+        "for m in ('jax', 'flax', 'dgm_img_super_resolution_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"sys.argv = {argv!r}\n"
+        f"runpy.run_path({script!r}, run_name='__main__')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=ONE_THREAD, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    rec = json.loads((tmp_path / "rec.json").read_text())
+    assert rec["device"] == "cpu" and rec["images"] == "synthetic, seed 7"
+    assert sorted(rec["results"]) == ["ddim8_eta1", "ddpm100", "ddpm100_seed2"]
+    assert sorted(p.name for p in (tmp_path / "wd" / "images").iterdir()) == ["synth0_img.png", "synth1_img.png"]
+
+
+def test_operating_point_study_needs_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
+    """Without a card and without ``--device`` the study raises before it
+    writes or builds anything."""
+    import importlib.util
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = importlib.util.spec_from_file_location("isolation_study", ROOT / STUDY)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main(["--work-dir", str(tmp_path / "wd"), "--out", str(tmp_path / "rec.json")])
+    assert not any(tmp_path.iterdir())
 
 
 def test_cpu_regions_leave_the_launch_counters_alone():
